@@ -1,0 +1,116 @@
+"""RecEVFlowNet: the PyTorch counterpart of
+``taming_event_flow_tpu/models/model.py``.
+
+Public tensors keep the JAX package's layout: the input is NHWC
+``[B, H, W, C]`` and the flows come back ``[S, B, H, W, 2]`` in (x, y)
+order, finest scale last. The network runs NCHW inside, and its recurrent
+carry is a tuple of NCHW maps (:meth:`RecEVFlowNet.init_state`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.device import resolve_device
+from .blocks import init_weights
+from .unet import MultiResUNetRecurrent
+
+
+def pad_to_multiple(x, min_size: int = 16):
+    """Top-left zero-pad NHWC input to a multiple of ``min_size``
+    (reference ``models/model_util.py:52-65``)."""
+    h, w = x.shape[1], x.shape[2]
+    ph = (min_size - h % min_size) % min_size
+    pw = (min_size - w % min_size) % min_size
+    if ph or pw:
+        x = F.pad(x, (0, 0, pw, 0, ph, 0))
+    return x, (ph, pw)
+
+
+def unpad(x, pads: Tuple[int, int]):
+    """Inverse of :func:`pad_to_multiple` for NHWC tensors."""
+    ph, pw = pads
+    return x[:, ph:, pw:, :]
+
+
+class RecEVFlowNet(nn.Module):
+    """Recurrent EV-FlowNet (reference ``models/model.py:6-85``).
+
+    ``forward(x, state) -> (flows, new_state)``; flow values are in the final
+    activation's range, callers apply ``flow_scaling``.
+    """
+
+    def __init__(self, num_bins: int = 2, base_channels: int = 64,
+                 num_encoders: int = 4, num_residual_blocks: int = 2,
+                 num_output_channels: int = 2, skip_type: str = "sum",
+                 norm=None, use_upsample_conv: bool = True,
+                 kernel_size: int = 3, channel_multiplier: float = 2,
+                 final_activation: Optional[str] = "tanh",
+                 final_w_scale: Optional[float] = None, min_size: int = 16):
+        super().__init__()
+        self.num_encoders = num_encoders
+        self.min_size = min_size
+        self.arch = MultiResUNetRecurrent(
+            num_bins=num_bins, base_channels=base_channels,
+            num_encoders=num_encoders,
+            num_residual_blocks=num_residual_blocks,
+            num_output_channels=num_output_channels, skip_type=skip_type,
+            norm=norm, use_upsample_conv=use_upsample_conv,
+            kernel_size=kernel_size, channel_multiplier=channel_multiplier,
+            final_activation=final_activation, final_w_scale=final_w_scale,
+        )
+
+    def forward(self, x, state):
+        x, pads = pad_to_multiple(x, self.min_size)
+        hp, wp = x.shape[1], x.shape[2]
+        preds, new_state = self.arch(
+            x.permute(0, 3, 1, 2).contiguous(), state)
+        flows = []
+        for i, flow in enumerate(preds):
+            scale = 2 ** (self.num_encoders - i - 1)
+            if flow.shape[2:] != (hp, wp):
+                flow = F.interpolate(flow, size=(hp, wp), mode="bilinear",
+                                     align_corners=False)
+            flows.append(unpad((scale * flow).permute(0, 2, 3, 1), pads))
+        return torch.stack(flows, dim=0), new_state
+
+    def init_state(self, batch: int, height: int, width: int,
+                   dtype=torch.float32, device=None):
+        """Zero recurrent carry (= reference ``reset_states``)."""
+        ph = (self.min_size - height % self.min_size) % self.min_size
+        pw = (self.min_size - width % self.min_size) % self.min_size
+        return self.arch.init_state(batch, height + ph, width + pw, dtype,
+                                    device)
+
+
+# config keys that map onto model arguments (reference model kwargs)
+_FIELD_KEYS = {
+    "base_channels", "num_encoders", "num_residual_blocks",
+    "num_output_channels", "skip_type", "norm", "use_upsample_conv",
+    "kernel_size", "channel_multiplier", "final_activation",
+    "final_w_scale", "min_size",
+}
+
+
+def build_model(model_config: Dict[str, Any], num_bins: int = 2,
+                device="cuda", seed: int = 0) -> RecEVFlowNet:
+    """Build a model from a config dict, with weights drawn from ``seed``,
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    name = model_config.get("name", "RecEVFlowNet")
+    if name != "RecEVFlowNet":
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet; see ROADMAP.md "
+            "(registry variants)")
+    if model_config.get("compute_dtype"):
+        raise NotImplementedError(
+            "model.compute_dtype is not ported yet; the eval path's bf16 "
+            "forward is metrics.inference_dtype")
+    kwargs = {k: v for k, v in model_config.items() if k in _FIELD_KEYS}
+    model = RecEVFlowNet(num_bins=num_bins, **kwargs)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev)

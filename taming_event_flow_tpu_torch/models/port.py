@@ -1,0 +1,68 @@
+"""JAX (Flax) parameters -> the port's ``state_dict``.
+
+The inverse of ``taming_event_flow_tpu/models/port.py:
+torch_state_dict_to_flax``: the port's modules carry the reference torch
+names, so the Flax tree maps back name for name, and conv kernels go from
+Flax ``[kh, kw, in, out]`` to torch ``[out, in, kh, kw]``::
+
+  arch/encoder_<i>/conv/Conv_0            -> arch.encoders.<i>.conv.conv2d
+  arch/encoder_<i>/recurrent_block/<gate> -> arch.encoders.<i>.recurrent_block.<gate>
+  arch/resblock_<j>/conv<k>               -> arch.resblocks.<j>.conv<k>
+  arch/decoder_<i>/conv/Conv_0            -> arch.decoders.<i>.conv2d
+  arch/pred_<i>/Conv_0                    -> arch.preds.<i>.conv2d
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_PATTERNS = [
+    (re.compile(r"^arch/encoder_(\d+)/conv/Conv_0$"),
+     r"arch.encoders.\1.conv.conv2d"),
+    (re.compile(r"^arch/encoder_(\d+)/recurrent_block/"
+                r"(reset_gate|update_gate|out_gate)$"),
+     r"arch.encoders.\1.recurrent_block.\2"),
+    (re.compile(r"^arch/resblock_(\d+)/(conv1|conv2)$"),
+     r"arch.resblocks.\1.\2"),
+    (re.compile(r"^arch/decoder_(\d+)/conv/Conv_0$"),
+     r"arch.decoders.\1.conv2d"),
+    (re.compile(r"^arch/pred_(\d+)/Conv_0$"), r"arch.preds.\1.conv2d"),
+]
+
+
+def _leaves(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix, k, v
+
+
+def flax_params_to_state_dict(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert a RecEVFlowNet Flax ``params`` tree (numpy leaves) into a
+    ``state_dict`` for :class:`~.model.RecEVFlowNet`.
+
+    :raises KeyError: on a parameter path the port has no module for.
+    """
+    out = {}
+    for path, leaf, value in _leaves(params_np):
+        module = "/".join(path)
+        for pat, repl in _PATTERNS:
+            if pat.match(module):
+                name = pat.sub(repl, module)
+                break
+        else:
+            raise KeyError(f"No port module for Flax parameter {module}")
+        value = np.asarray(value, dtype=np.float32)
+        if leaf == "kernel":
+            out[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1))))
+        elif leaf == "bias":
+            out[f"{name}.bias"] = torch.from_numpy(value.copy())
+        else:
+            raise KeyError(f"Unexpected Flax leaf {module}/{leaf}")
+    return out
