@@ -5,17 +5,30 @@ one NVIDIA card.
     python3 chip_smoke.py [--seed S] [--profile DIR]
 
 1. Prints the card (``nvidia-smi`` name and power limit), sets both TF32
-   flags, builds the CUDA kernels from ``taming_event_flow_tpu_torch/csrc``.
+   flags off, builds the CUDA kernels from
+   ``taming_event_flow_tpu_torch/csrc``.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the DSEC eval path's shapes, with its time, the plain version's, a
-   library yardstick's and its memory bound.
-3. Slice phase: the DSEC eval protocol (``configs/eval_dsec.yml``: 480x640,
+   with its time, the plain version's, a library yardstick's and its
+   memory bound: the splat and the gather at the DSEC eval path's shapes,
+   the fused dual-stencil gather at the training path's (the splat
+   backward, C=4, and the gather backward, C=2).
+3. Eval phase: the DSEC eval protocol (``configs/eval_dsec.yml``: 480x640,
    P=10, 65,536-event bucket, FWL/RSAT/AEE, Iterative warping, bf16
    forward, flow_bw store) through ``EvalPipeline`` with a full-width
    RecEVFlowNet (seeded weights) on synthetic event windows; the launch
-   counters must show both kernels ran. Then one window in float32 on the
-   card and on the CPU (plain versions), whose metrics must agree.
-4. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+   counters must show the splat and the gather ran (and the backward kernel
+   did not). Then one window in float32 on the card and on the CPU (plain
+   versions), whose metrics must agree.
+4. Training phase: the training configuration (``configs/train_flow.yml``
+   at the batch ``bench.py`` measures: 128x128, P=10, B=8, 8,192 events per
+   pass and lane, Iterative loss, Adam after clip 100) through
+   ``make_train_step`` for one warm-up and five timed steps; losses must be
+   finite and change, every parameter must get a finite non-zero gradient,
+   and all three launch counters must grow. Then float32 on the card
+   against the CPU at B=1 (:func:`card_vs_cpu`): the step's loss, the loss's
+   flow gradient on identical flows and the model's parameter gradients
+   for one flow cotangent must agree.
+5. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It imports nothing of JAX or the JAX package.
@@ -43,6 +56,21 @@ METRIC_RTOL, METRIC_ATOL = 2e-3, 2e-4  # the JAX suite's pipeline parity
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-5
 N_WINDOWS = 3  # the first one warms cuDNN up and is not timed
 DEVICE = "cuda"
+
+# training slice: configs/train_flow.yml at bench.py's bench_train batch
+TRAIN_RES = (128, 128)
+TRAIN_B = 8
+TRAIN_N = 8192  # events per pass and lane
+TRAIN_STEPS = 5  # timed, after one warm-up step
+FUSED_M = PASSES * TRAIN_N  # the IWE splat at tref 5 holds all ten windows
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, float32
+TRAIN_GRAD_TOL = 1e-3  # max abs error per tensor, x that tensor's max |g|
+JITTER = 1e-6  # relative move of weights or flows for the CPU's own gap
+TRAIN_LOSS = {"res": TRAIN_RES, "passes_loss": PASSES, "scales_loss": 1,
+              "iterative_mode": "two", "round_ts": False}
+TRAIN_OPT = {"name": "Adam", "lr": 1e-5}
+TRAIN_CLIP = 100.0
+FLOW_SCALING = 32.0
 
 # configs/eval_dsec.yml, with the training config's loss keys
 # (configs/train_flow.yml) that the eval CLI merges in
@@ -261,6 +289,124 @@ def kernel_phase(rng):
     return results
 
 
+def fused_points(rng, batch, h, w):
+    """``[B, FUSED_M, 2]`` lookup points as the training backward meets
+    them: fractional, some out of frame, and the first quarter of each lane
+    at exactly integer coordinates (where the dual stencil spans three taps
+    per axis)."""
+    loc = np.stack([rng.uniform(-2, h + 1, (batch, FUSED_M)),
+                    rng.uniform(-2, w + 1, (batch, FUSED_M))],
+                   -1).astype(np.float32)
+    loc[:, : FUSED_M // 4] = np.round(loc[:, : FUSED_M // 4])
+    return loc
+
+
+def n_dual_taps(loc, h, w):
+    """``(taps, y taps)`` the fused kernel reads for ``loc [..., 2]``: per
+    axis, the in-frame taps of floor and floor+1, and of floor-1 too at an
+    exactly integer coordinate."""
+    import torch
+
+    def axis(c, size):
+        c0 = torch.floor(c)
+        count = torch.zeros_like(c)
+        for k in (-1, 0, 1):
+            t = c0 + k
+            ok = (t >= 0) & (t <= size - 1)
+            count += (ok & (c == c0)) if k == -1 else ok
+        return count
+
+    ny, nx = axis(loc[..., 0], h), axis(loc[..., 1], w)
+    return int((ny * nx).sum()), int(ny.sum())
+
+
+def fused_phase(rng):
+    """The fused dual-stencil gather at the training path's shapes: the
+    splat backward (the C=4 IWE cotangent image, the splat's values) and
+    the gather backward (the C=2 flow map, the gather's cotangent), both
+    without gather values, as the path calls them."""
+    import torch
+    import torch.nn.functional as F
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    dev = torch.device(DEVICE)
+    h, w = TRAIN_RES
+    loc = torch.from_numpy(fused_points(rng, TRAIN_B, h, w)).to(dev)
+    n = loc.shape[0] * loc.shape[1]
+    q = FUSED_M // 4  # the integer points; the yardstick skips them
+    grid = torch.stack([2 * loc[:, q:, 1] / (w - 1) - 1,
+                        2 * loc[:, q:, 0] / (h - 1) - 1], -1)[:, None]
+    # grid_sample's coordinate normalisation moves a point by ~1e-5 px: one
+    # within that of an integer may land on the other side, where the
+    # derivative stencil jumps, so the agreement is read on the others
+    frac = loc[:, q:] - torch.floor(loc[:, q:])
+    clear = ((frac > 1e-3) & (frac < 1 - 1e-3)).all(-1)
+    taps, ytaps = n_dual_taps(loc, h, w)
+    cases, err = {}, 0.0
+    for tag, c in (("splat_backward", 4), ("gather_backward", 2)):
+        maps = torch.from_numpy(rng.normal(size=(TRAIN_B, h, w, c))
+                                .astype(np.float32)).to(dev)
+        vals = torch.from_numpy(rng.normal(size=(TRAIN_B, FUSED_M, c))
+                                .astype(np.float32)).to(dev)
+        got = cuda_warp.gather_fused(maps, loc, vals)
+        ref = cuda_warp.gather_fused_plain(maps, loc, vals)
+        torch.cuda.synchronize()
+        e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        check(all(torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+                  for a, b in zip(got, ref)),
+              f"fused gather disagrees with its plain version ({tag}): {e}")
+        err = max(err, e)
+
+        maps_nchw = maps.permute(0, 3, 1, 2).contiguous()
+        g_out = vals[:, q:].permute(0, 2, 1)[:, :, None].contiguous()
+
+        def lib():
+            # two calls the port never makes: grid_sample forward (gv) and
+            # its grid gradient (the location gradient x (size - 1) / 2)
+            out = F.grid_sample(maps_nchw, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            _, d_grid = torch.ops.aten.grid_sampler_2d_backward(
+                g_out, maps_nchw, grid, 0, 0, True, [False, True])
+            return out, d_grid
+
+        out, d_grid = lib()
+        lib_err = max(
+            float((out[:, :, 0].transpose(1, 2) - ref[0][:, q:])[clear]
+                  .abs().max()),
+            float((d_grid[:, 0, :, 0] * (2 / (w - 1)) - ref[2][:, q:])[clear]
+                  .abs().max()),
+            float((d_grid[:, 0, :, 1] * (2 / (h - 1)) - ref[1][:, q:])[clear]
+                  .abs().max()))
+        nbytes = (loc.numel() + vals.numel() + maps.numel() + 2 * n) * 4
+        nops = taps * c * 4 + ytaps * c * 6 + n * c * 4
+        b_ms, b_by = bound_ms(nbytes, nops)
+        cases[tag] = {
+            "ms": time_ms(lambda: cuda_warp.gather_fused(
+                maps, loc, vals, with_gv=False)),
+            "plain_ms": time_ms(lambda: cuda_warp.gather_fused_plain(
+                maps, loc, vals, with_gv=False), reps=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lib),
+        }
+        print(f"gather_fused {tag} (B={TRAIN_B}, M={FUSED_M}, C={c}): "
+              f"max_abs_err {e:.3e}; {cases[tag]}; grid_sample + "
+              f"grid_sampler_2d_backward on the {n - TRAIN_B * q} "
+              f"non-integer points ({int(clear.sum())} more than 1e-3 px "
+              f"from an integer: differ by {lib_err:.3e})")
+
+    entry = {
+        "name": "gather_fused",
+        "route": "cuda",
+        "source": "taming_event_flow_tpu_torch/csrc/warp_kernels.cu",
+        "replaces": "taming_event_flow_tpu/ops/pallas_warp.py:281",
+        "max_abs_err": err,
+        **cases["splat_backward"],
+        "gather_backward": cases["gather_backward"],
+    }
+    return {"gather_fused": entry}
+
+
 # --------------------------------------------------------------- slice phase
 
 
@@ -330,8 +476,11 @@ def slice_phase(rng, n_windows, profile_dir):
     reset_launches()
     mets, secs = run_windows(pipe, windows)
     launches = dict(LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    # per window: the RSAT/FWL splat pair and one gather per pass
+    expect = {"splat_bilinear": 2 * n_windows,
+              "gather_bilinear": PASSES * n_windows, "gather_fused": 0}
+    check(launches == expect,
+          f"eval path launches {launches}, expected {expect}")
     for i, m in enumerate(mets):
         check_metrics(m, f"window {i}")
         print(f"bf16 window {i}: {secs[i] * 1e3:.2f} ms  FWL "
@@ -366,8 +515,10 @@ def slice_phase(rng, n_windows, profile_dir):
     return launches, ms_pass
 
 
-def profile_window(pipe, passes, out_dir):
-    """Kernel-time breakdown of one warm bf16 window (torch.profiler)."""
+def profile_run(fn, out_dir, tag, trace=True):
+    """Kernel-time breakdown of one call of ``fn`` (torch.profiler): the
+    table goes to ``<out_dir>/profile_<tag>.txt``, the ten kernels with the
+    most device time to stdout."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -376,21 +527,302 @@ def profile_window(pipe, passes, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_windows(pipe, [passes])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
-    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=60)
     # device time: the kernels' and copies' own rows (each op's row would
     # count its kernels a second time)
-    busy = sum(a.self_device_time_total for a in averages
-               if a.device_type == DeviceType.CUDA) / 1e6  # us -> s
-    with open(os.path.join(out_dir, "profile_window.txt"), "w") as f:
+    # (a user annotation such as the optimizer step's spans its kernels on
+    # the device timeline and would count them again)
+    device_rows = [a for a in averages if a.device_type == DeviceType.CUDA
+                   and not a.is_user_annotation]
+    busy = sum(a.self_device_time_total for a in device_rows) / 1e6  # s
+    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(f"wall {wall * 1e3:.3f} ms, device time "
                 f"{busy * 1e3:.3f} ms\n{table}\n")
-    prof.export_chrome_trace(os.path.join(out_dir, "trace_window.json"))
-    print(f"profile: wall {wall * 1e3:.3f} ms/window, device time "
+    if trace:
+        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{tag}.json"))
+    print(f"profile {tag}: wall {wall * 1e3:.3f} ms, device time "
           f"{busy * 1e3:.3f} ms -> {out_dir}")
+    top = sorted(device_rows, key=lambda a: -a.self_device_time_total)[:10]
+    for a in top:
+        print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d}x  "
+              f"{a.key[:90]}")
+
+
+def profile_window(pipe, passes, out_dir):
+    """Kernel-time breakdown of one warm bf16 eval window."""
+    profile_run(lambda: run_windows(pipe, [passes]), out_dir, "window")
+
+
+# ------------------------------------------------------------ training phase
+
+
+def train_window(rng, batch, device=DEVICE):
+    """One training window of ``PASSES`` passes as ``bench.py``'s
+    ``_synthetic_events`` builds it (uniform integer pixels, uniform ts,
+    +-1 polarity), every event on the gradient path, with the count input
+    derived on the device. On the card unless the caller asks for the CPU.
+    """
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import derive_count_input
+    from taming_event_flow_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    shape = (PASSES, batch, TRAIN_N)
+    ev = np.zeros(shape + (4,), np.float32)
+    ev[..., 0] = rng.uniform(0, 1, shape)
+    ev[..., 1] = rng.integers(0, TRAIN_RES[0], shape)
+    ev[..., 2] = rng.integers(0, TRAIN_RES[1], shape)
+    ev[..., 3] = rng.choice([-1.0, 1.0], shape)
+    ev = torch.from_numpy(ev).to(dev)
+    p = ev[..., 3]
+    return {"net_input": derive_count_input(ev, TRAIN_RES),
+            "event_list": ev,
+            "pol_mask": torch.stack([p > 0, p < 0], dim=-1).float(),
+            "grad_mask": torch.ones(shape + (1,), device=dev)}
+
+
+def build_trainer(batch, device):
+    """The training slice: full-width RecEVFlowNet (seed 0), Adam after the
+    global-norm clip, the Iterative loss; returns ``(model, step, state)``.
+    """
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import LossConfig
+    from taming_event_flow_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+
+    model = build_model(MODEL_CONFIG, num_bins=2, device=device, seed=0)
+    opt = build_optimizer(TRAIN_OPT, model.parameters(),
+                          clip_grad=TRAIN_CLIP, device=device)
+    step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS),
+                           "Iterative", flow_scaling=FLOW_SCALING,
+                           res=TRAIN_RES)
+    return model, step, init_train_state(model, batch, *TRAIN_RES,
+                                         device=device)
+
+
+def check_grads(model, tag):
+    """Every parameter got a finite, non-zero gradient."""
+    import torch
+
+    names, grads = zip(*((n, p.grad) for n, p in model.named_parameters()))
+    check(all(g is not None for g in grads), f"{tag}: a gradient is missing")
+    ok = torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                      for g in grads]).cpu()
+    bad = [n for n, good in zip(names, ok.tolist()) if not good]
+    check(not bad, f"{tag}: non-finite or all-zero gradients: {bad}")
+
+
+def padding_cost(model, window):
+    """What the rows purged to (0, 0) cost the splat: the tref-5 IWE splat
+    of each flow scale, with and without them."""
+    import torch
+
+    from taming_event_flow_tpu_torch.objectives import warp_table_triangular
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+    from taming_event_flow_tpu_torch.training import run_passes
+
+    tref = PASSES // 2
+    with torch.no_grad():
+        carry = model.init_state(TRAIN_B, *TRAIN_RES, device=DEVICE)
+        flows, _ = run_passes(model, carry, window["net_input"],
+                              FLOW_SCALING)
+        ts = window["event_list"][..., 0:1] + torch.arange(
+            PASSES, device=DEVICE).reshape(-1, 1, 1, 1)
+    for s in range(flows.shape[1]):
+        with torch.no_grad():
+            loc, mask = warp_table_triangular(
+                flows[:, s], window["event_list"][..., 1:3], ts,
+                window["pol_mask"], TRAIN_RES)
+        loc = loc[tref].permute(1, 0, 2, 3).reshape(TRAIN_B, -1, 2)
+        mask = mask[tref].permute(1, 0, 2, 3).reshape(TRAIN_B, -1, 2)
+        loc = loc.contiguous()
+        vals = torch.cat([mask, mask * 0.5], -1).contiguous()
+        at_origin = (mask.sum(-1) == 0) & (loc == 0).all(-1)
+        keep = int((~at_origin).sum(1).min())
+        # per lane, the first `keep` rows that are not purged: the same
+        # points the splat counts, without the zero atomics on pixel (0, 0)
+        order = torch.argsort(at_origin.int(), dim=1, stable=True)[:, :keep]
+        loc_k = torch.gather(loc, 1, order[..., None].expand(-1, -1, 2))
+        vals_k = torch.gather(vals, 1, order[..., None].expand(-1, -1, 4))
+        full = time_ms(lambda: cuda_warp.splat_bilinear(loc, vals,
+                                                        TRAIN_RES))
+        kept = time_ms(lambda: cuda_warp.splat_bilinear(
+            loc_k.contiguous(), vals_k.contiguous(), TRAIN_RES))
+        n0 = int(at_origin.sum())
+        print(f"padding rows, scale {s}: {n0} of {at_origin.numel()} rows of "
+              f"the tref-{tref} IWE splat sit purged at (0, 0) "
+              f"({n0 / TRAIN_B:.0f} per lane); splat {full:.5f} ms with "
+              f"them, {kept:.5f} ms on the {keep} per lane without")
+
+
+def max_ratio(got, ref):
+    """``max |got - ref| / max |ref|``."""
+    return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+
+def grad_gaps(model, ref_model):
+    """Per parameter ``max |g - g_ref| / max |g_ref|``: the worst
+    ``(ratio, name)`` and the global relative L2 error."""
+    ref = dict(ref_model.named_parameters())
+    worst, diff2, norm2 = (-1.0, None), 0.0, 0.0
+    for name, p in model.named_parameters():
+        g, r = p.grad.cpu(), ref[name].grad
+        worst = max(worst, (max_ratio(g, r), name),
+                    key=lambda t: t[0])
+        diff2 += float(((g - r) ** 2).sum())
+        norm2 += float((r ** 2).sum())
+    return worst, math.sqrt(diff2 / norm2)
+
+
+def card_vs_cpu(rng):
+    """Float32 on the card (TF32 off) against the CPU's plain versions, at
+    B=1 from the same weights on the same window.
+
+    The loss's gradient is discontinuous in the flows (the derivative
+    stencil jumps where a warped point crosses an integer coordinate), so
+    the whole step's parameter gradients move with the convolutions'
+    rounding on either device. The check holds each half of the chain
+    apart: (a) the whole step's loss; (b) the loss's flow gradient on
+    identical flows (the warp and its kernels, forward and backward); (c)
+    the parameter gradients of the P passes for one flow cotangent (the
+    model's backward), in float64 on both devices. Printed beside them:
+    the whole step's gradient gap next to the CPU's own gap when its
+    weights move by ``JITTER``, and the float32 model gradients against
+    float64 on either device."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import (
+        LossConfig,
+        iterative_loss,
+    )
+    from taming_event_flow_tpu_torch.training import run_passes
+
+    w_card = train_window(rng, 1)
+    w_cpu = {k: v.cpu() for k, v in w_card.items()}
+    cfg = LossConfig(**TRAIN_LOSS)
+
+    def flows_of(model, w, dtype=torch.float32):
+        dev = next(model.parameters()).device
+        carry = model.init_state(1, *TRAIN_RES, dtype=dtype, device=dev)
+        return run_passes(model, carry, w["net_input"].to(dtype),
+                          FLOW_SCALING)[0]
+
+    # (a) the whole step; the CPU once more with its weights jittered
+    runs = {}
+    for tag, dev, w, jitter in (("card", DEVICE, w_card, 0.0),
+                                ("cpu", "cpu", w_cpu, 0.0),
+                                ("jitter", "cpu", w_cpu, JITTER)):
+        model, step, state = build_trainer(1, dev)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                noise = torch.randn(p.shape, generator=gen).to(dev)
+                p.mul_(1 + jitter * noise)
+            flows = flows_of(model, w).cpu()
+        t0 = time.perf_counter()
+        _, loss = step(state, w)
+        runs[tag] = (model, flows, float(loss))
+        print(f"{tag} train step: {time.perf_counter() - t0:.1f} s")
+    a, b = runs["card"][2], runs["cpu"][2]
+    rel = abs(a - b) / abs(b)
+    print(f"f32 train loss: card {a:.8f} cpu {b:.8f} rel {rel:.2e}")
+    check(rel <= TRAIN_LOSS_RTOL, f"train loss: card {a} vs cpu {b}")
+    for tag in ("card", "jitter"):
+        (worst, name), glob = grad_gaps(runs[tag][0], runs["cpu"][0])
+        print(f"f32 whole step, {tag} vs cpu: flows max abs error / max "
+              f"|flow| {max_ratio(runs[tag][1], runs['cpu'][1]):.2e}; "
+              f"gradients worst {worst:.2e} ({name}), global {glob:.2e}")
+
+    # (b) the loss's flow gradient on identical flows
+    flows = runs["cpu"][1]
+    gen = torch.Generator().manual_seed(2)
+    jittered = flows * (1 + JITTER * torch.randn(flows.shape, generator=gen))
+    g_flow = {}
+    for tag, dev, w, fl in (("card", DEVICE, w_card, flows),
+                            ("cpu", "cpu", w_cpu, flows),
+                            ("jitter", "cpu", w_cpu, jittered)):
+        f = fl.to(dev).requires_grad_()
+        iterative_loss(f, w["event_list"], w["pol_mask"], w["grad_mask"],
+                       cfg).backward()
+        g_flow[tag] = f.grad
+    ratio = max_ratio(g_flow["card"], g_flow["cpu"])
+    print(f"f32 loss flow gradient on identical flows, card vs cpu: max abs "
+          f"error / max |g| {ratio:.2e}; cpu with flows jittered vs cpu "
+          f"{max_ratio(g_flow['jitter'], g_flow['cpu']):.2e}")
+    check(ratio <= TRAIN_GRAD_TOL, f"loss flow gradient off by {ratio}")
+
+    # (c) the model's backward for one flow cotangent
+    models = {}
+    for dtype in (torch.float64, torch.float32):
+        for dev, w in ((DEVICE, w_card), ("cpu", w_cpu)):
+            m = build_model(MODEL_CONFIG, num_bins=2, device=dev,
+                            seed=0).to(dtype)
+            flows_of(m, w, dtype).backward(g_flow["cpu"].to(dev))
+            models[dev, dtype] = m
+    ref = models["cpu", torch.float64]
+    (worst, name), glob = grad_gaps(models[DEVICE, torch.float64], ref)
+    print(f"f64 model gradients for one flow cotangent, card vs cpu: worst "
+          f"max abs error / max |g| {worst:.2e} ({name}), global "
+          f"{glob:.2e}")
+    check(worst <= TRAIN_GRAD_TOL,
+          f"model gradients: {name} off by {worst} x its max |g|")
+    for dev in (DEVICE, "cpu"):
+        (w32, n32), g32 = grad_gaps(models[dev, torch.float32], ref)
+        print(f"f32 model gradients on {dev} vs f64 on cpu: worst {w32:.2e} "
+              f"({n32}), global {g32:.2e}")
+
+
+def train_phase(rng, profile_dir):
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+
+    model, step, state = build_trainer(TRAIN_B, DEVICE)
+    windows = [train_window(rng, TRAIN_B) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for i, window in enumerate(windows):
+        t0 = time.perf_counter()
+        state, loss = step(state, window)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"train step {i}: loss not finite")
+        check_grads(model, f"train step {i}")
+        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{losses[-1]:.7f}  {secs[-1] * 1e3:.2f} ms")
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the training path")
+    check(all(a != b for a, b in zip(losses, losses[1:])),
+          f"the loss did not change between steps: {losses}")
+    check(state.step == len(windows), "step count")
+    ms_step = float(np.mean(secs[1:])) * 1e3
+    per_step = {k: v / len(windows) for k, v in launches.items()}
+    print(f"train: {ms_step:.3f} ms/step (mean of {TRAIN_STEPS} warm steps, "
+          f"B={TRAIN_B}, {TRAIN_RES[0]}x{TRAIN_RES[1]}, P={PASSES}, "
+          f"N={TRAIN_N}); launches {launches} ({per_step} per step); peak "
+          f"memory {peak / 2**30:.3f} GiB ({peak} B)")
+
+    padding_cost(model, windows[-1])
+    if profile_dir:
+        profile_run(lambda: step(state, windows[-1]), profile_dir, "train",
+                    trace=False)
+
+    card_vs_cpu(rng)
+    return launches, ms_step
 
 
 def main(argv=None):
@@ -421,16 +853,21 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     kernels = kernel_phase(rng)
-    launches, ms_pass = slice_phase(rng, N_WINDOWS, args.profile)
+    kernels.update(fused_phase(rng))
+    eval_launches, ms_pass = slice_phase(rng, N_WINDOWS, args.profile)
+    train_launches, ms_step = train_phase(rng, args.profile)
 
     entries = []
-    for name in ("splat_bilinear", "gather_bilinear"):
+    for name in ("splat_bilinear", "gather_bilinear", "gather_fused"):
         e = dict(kernels[name])
-        e["launches"] = launches[name]
+        e["launches"] = eval_launches[name] + train_launches[name]
+        e["launches_by_path"] = {"dsec_eval": eval_launches[name],
+                                 "train": train_launches[name]}
         entries.append(e)
     print(f"splat on fractional input: "
           f"{kernels['splat_bilinear_fractional_ms']:.4f} ms")
     print(f"slice_ms_per_pass {ms_pass:.4f}")
+    print(f"train_ms_per_step {ms_step:.4f}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

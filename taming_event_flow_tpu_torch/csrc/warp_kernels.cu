@@ -1,4 +1,5 @@
-// Bilinear splat and gather for Hopper (sm_90a), with a plain C interface
+// Bilinear splat, gather and fused dual-stencil gather (the backward of both)
+// for Hopper (sm_90a), with a plain C interface
 // that taming_event_flow_tpu_torch/ops/cuda_warp.py loads through ctypes.
 //
 // Both kernels evaluate the 4-tap bilinear stencil
@@ -42,6 +43,35 @@
 // a 480x640x2 flow map stays L2-resident). Products and sums use
 // __fmul_rn/__fadd_rn in tap order (00, 01, 10, 11) so that the result is
 // bitwise the plain PyTorch version's (no FMA contraction).
+//
+// gather_fused_kernel replaces the Pallas `_gather_fused_kernel`
+// (pallas_warp.py:281, call :361): in one pass over a point's taps it
+// computes the gather and both location derivatives, contracted with
+// per-point values over channels,
+//     gv[c] = sum tri(y-h) tri(x-w) m_c
+//     dy    = sum_c v_c sum dtri(y-h) tri(x-w) m_c
+//     dx    = sum_c v_c sum tri(y-h) dtri(x-w) m_c
+// which is the whole backward of the splat (m = the cotangent image,
+// v = the splatted values; gv = d_values, (dy, dx) = d_loc) and the location
+// half of the gather's backward (m = the gathered maps, v = the cotangent;
+// gv unused, so the caller passes a null gv and the kernel skips it).
+// The TPU kernel builds dense [TH, E] triangle and derivative factor tiles
+// for the MXU because the TPU has no fast gather; on Hopper one thread per
+// (point, batch) reads its taps x C channels of maps and writes C + 2
+// outputs, with no atomics and no shared memory. dtri is the Pallas
+// `_stencil` (pallas_warp.py:71-78), jax's autodiff rule for
+// max(0, 1 - |d|): per axis, over the taps floor-1, floor, floor+1,
+//     frac > 0:  tri = (0, 1-f, f),  dtri = (0,    -1, +1)
+//     frac == 0: tri = (0, 1,   0),  dtri = (-0.5, -1, +0.5)
+// so an exactly-integer coordinate reads three taps on that axis where the
+// forward gather reads one; a fractional point reads 2x2 taps. Each tap is
+// tested against [0, H-1] x [0, W-1] in float like gather_kernel (which also
+// drops NaN). Bound on this card: bytes. Per point it reads 8 + 4C bytes of
+// loc and values and writes 4C + 8 (4C of them only with gv); the taps' map
+// rows are L2-resident (128x128x4 floats = 256 KB per lane at the training
+// shape). Products and sums use __fmul_rn/__fadd_rn in a fixed order (y tap,
+// then x tap, then channel) that the plain PyTorch version repeats, so the
+// two agree bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +156,96 @@ __global__ void gather_kernel(const float* __restrict__ maps,
   for (int c = 0; c < C; ++c) out[row * C + c] = acc[c];
 }
 
+// The dual stencil of one axis over the taps floor(c) - 1 + k, k = 0, 1, 2:
+// weights tri/dtri (zero for a tap outside [0, size - 1]), the tap index and
+// whether the tap has to be read at all.
+__device__ __forceinline__ void dual_axis(float c, int size, float* tri,
+                                          float* dtri, int* tap, bool* need) {
+  const float c0 = floorf(c);
+  const float f = c - c0;
+  const bool integer = f == 0.0f;
+  const float t3[3] = {0.0f, 1.0f - f, f};
+  const float d3[3] = {integer ? -0.5f : 0.0f, -1.0f, integer ? 0.5f : 1.0f};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t = c0 + (float)(k - 1);
+    const bool ok = t >= 0.0f && t <= (float)(size - 1);  // also drops NaN
+    tri[k] = ok ? t3[k] : 0.0f;
+    dtri[k] = ok ? d3[k] : 0.0f;
+    need[k] = ok && (t3[k] != 0.0f || d3[k] != 0.0f);
+    tap[k] = need[k] ? (int)t : 0;
+  }
+}
+
+template <int C>
+__global__ void gather_fused_kernel(const float* __restrict__ maps,
+                                    const float* __restrict__ loc,
+                                    const float* __restrict__ values,
+                                    float* __restrict__ gv,
+                                    float* __restrict__ dy,
+                                    float* __restrict__ dx, int M, int H,
+                                    int W) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= M) return;
+  const int b = blockIdx.y;
+  const int64_t row = (int64_t)b * M + e;
+  float wy[3], dwy[3], wx[3], dwx[3];
+  int ty[3], tx[3];
+  bool ny[3], nx[3];
+  dual_axis(loc[2 * row], H, wy, dwy, ty, ny);
+  dual_axis(loc[2 * row + 1], W, wx, dwx, tx, nx);
+  const float* img = maps + (int64_t)b * H * W * C;
+  float g[C], sy[C], sx[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g[c] = sy[c] = sx[c] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    // a: the x contraction with tri, bx: with dtri, for this y tap
+    float a[C], bx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] = bx[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const bool need = ny[i] && nx[j];
+      const float* px = img + ((int64_t)ty[i] * W + tx[j]) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float m = need ? px[c] : 0.0f;
+        a[c] = __fadd_rn(a[c], __fmul_rn(wx[j], m));
+        bx[c] = __fadd_rn(bx[c], __fmul_rn(dwx[j], m));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      g[c] = __fadd_rn(g[c], __fmul_rn(wy[i], a[c]));
+      sy[c] = __fadd_rn(sy[c], __fmul_rn(dwy[i], a[c]));
+      sx[c] = __fadd_rn(sx[c], __fmul_rn(wy[i], bx[c]));
+    }
+  }
+  float ddy = 0.0f, ddx = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float v = values[row * C + c];
+    ddy = __fadd_rn(ddy, __fmul_rn(v, sy[c]));
+    ddx = __fadd_rn(ddx, __fmul_rn(v, sx[c]));
+  }
+  if (gv != nullptr) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) gv[row * C + c] = g[c];
+  }
+  dy[row] = ddy;
+  dx[row] = ddx;
+}
+
+template <int C>
+void launch_gather_fused(const float* maps, const float* loc,
+                         const float* values, float* gv, float* dy, float* dx,
+                         int B, int M, int H, int W, cudaStream_t s) {
+  const dim3 grid((M + kThreads - 1) / kThreads, B);
+  gather_fused_kernel<C><<<grid, kThreads, 0, s>>>(maps, loc, values, gv, dy,
+                                                   dx, M, H, W);
+}
+
 template <int C>
 void launch_splat(const float* loc, const float* values, float* out, int B,
                   int M, int H, int W, cudaStream_t s) {
@@ -166,6 +286,21 @@ int tef_gather_bilinear(const float* maps, const float* loc, float* out,
     case 2: launch_gather<2>(maps, loc, out, B, M, H, W, s); break;
     case 3: launch_gather<3>(maps, loc, out, B, M, H, W, s); break;
     case 4: launch_gather<4>(maps, loc, out, B, M, H, W, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// gv may be null (not written); dy and dx may not.
+int tef_gather_fused(const float* maps, const float* loc, const float* values,
+                     float* gv, float* dy, float* dx, int B, int M, int C,
+                     int H, int W, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: launch_gather_fused<1>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
+    case 2: launch_gather_fused<2>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
+    case 3: launch_gather_fused<3>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
+    case 4: launch_gather_fused<4>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

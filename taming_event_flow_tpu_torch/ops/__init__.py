@@ -1,7 +1,11 @@
 from .cuda_warp import (
     LAUNCHES,
+    GatherBilinearFn,
+    SplatBilinearFn,
     gather_bilinear,
     gather_bilinear_plain,
+    gather_fused,
+    gather_fused_plain,
     reset_launches,
     splat_bilinear,
     splat_bilinear_plain,
@@ -25,6 +29,10 @@ __all__ = [
     "splat_bilinear_plain",
     "gather_bilinear",
     "gather_bilinear_plain",
+    "gather_fused",
+    "gather_fused_plain",
+    "SplatBilinearFn",
+    "GatherBilinearFn",
     "derive_count_input",
     "events_to_image",
     "events_to_channels",

@@ -1,10 +1,11 @@
 """Bilinear splat and gather: hand-written CUDA kernels on the card, their
-plain PyTorch versions on the CPU.
+plain PyTorch versions on the CPU, and the autograd Functions around them.
 
 Counterpart of the Pallas kernels in ``taming_event_flow_tpu/ops/
-pallas_warp.py`` (``_splat_kernel`` and ``_gather_kernel``, forward only);
-the kernels live in ``csrc/warp_kernels.cu`` (see its header for the design
-and what bounds it on an H100).
+pallas_warp.py`` (``_splat_kernel``, ``_gather_kernel`` and
+``_gather_fused_kernel``) and of its custom VJPs (``_splat_vjp``,
+``_gather_vjp``); the kernels live in ``csrc/warp_kernels.cu`` (see its
+header for the design and what bounds each on an H100).
 
 The wrappers dispatch on the device of the tensors they are given: a CPU
 tensor goes to the plain version in this module, a CUDA tensor to the
@@ -12,9 +13,10 @@ kernel. There is no fallback: a CUDA tensor whose kernel fails to build or
 launch raises. Each wrapper adds one to :data:`LAUNCHES` where it launches
 its kernel, so a run can show that it went through the kernels.
 
-Both functions evaluate the 4-tap stencil ``tri(y - h) * tri(x - w)`` at
+Splat and gather evaluate the 4-tap stencil ``tri(y - h) * tri(x - w)`` at
 the taps ``{floor(y), floor(y)+1} x {floor(x), floor(x)+1}``; taps outside
-``[0, H-1] x [0, W-1]`` are dropped.
+``[0, H-1] x [0, W-1]`` are dropped. The fused gather adds the derivative
+stencil ``dtri`` of the Pallas kernels (:func:`gather_fused_plain`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-LAUNCHES = {"splat_bilinear": 0, "gather_bilinear": 0}
+LAUNCHES = {"splat_bilinear": 0, "gather_bilinear": 0, "gather_fused": 0}
 
 
 def reset_launches() -> None:
@@ -93,6 +95,68 @@ def gather_bilinear_plain(maps, loc):
     return out
 
 
+def _dual_axis(coord, size: int):
+    """One axis of the dual stencil over the taps ``floor(c) - 1 + k``,
+    ``k = 0, 1, 2``: ``(tap [B, M] int64, tri, dtri, in_frame)`` per tap,
+    the weights zero outside ``[0, size - 1]``. ``dtri`` is jax's autodiff
+    rule for ``max(0, 1 - |d|)`` (the Pallas ``_stencil``): ``(0, -1, +1)``
+    at a fractional coordinate, ``(-0.5, -1, +0.5)`` at an integer one."""
+    c0 = torch.floor(coord)
+    f = coord - c0
+    integer = f == 0
+    tri = (torch.zeros_like(f), 1.0 - f, f)
+    dtri = (torch.where(integer, -0.5, 0.0), torch.full_like(f, -1.0),
+            torch.where(integer, 0.5, 1.0))
+    taps = []
+    for k in range(3):
+        t = c0 + (k - 1)
+        ok = (t >= 0) & (t <= size - 1)
+        taps.append((torch.where(ok, t, 0.0).long(),
+                     torch.where(ok, tri[k], 0.0),
+                     torch.where(ok, dtri[k], 0.0), ok))
+    return taps
+
+
+def gather_fused_plain(maps, loc, values, with_gv: bool = True):
+    """The gather and both location derivatives in one pass, contracted
+    with ``values`` over channels::
+
+        gv[b, e, c] = sum tri(y - h) tri(x - w) maps[b, h, w, c]
+        dy[b, e]    = sum_c values[b, e, c] sum dtri(y - h) tri(x - w) maps
+        dx[b, e]    = sum_c values[b, e, c] sum tri(y - h) dtri(x - w) maps
+
+    summed in the kernel's order (y tap, x tap, channel).
+
+    :param maps: ``[B, H, W, C]`` float32.
+    :param loc: ``[B, M, 2]`` float32 ``(y, x)``.
+    :param values: ``[B, M, C]`` float32.
+    :return: ``(gv [B, M, C] or None when not with_gv, dy [B, M],
+        dx [B, M])``.
+    """
+    b, h, w, c = maps.shape
+    flat = maps.reshape(b, h * w, c)
+    ys, xs = _dual_axis(loc[..., 0], h), _dual_axis(loc[..., 1], w)
+    zero = torch.zeros(b, loc.shape[1], c, dtype=torch.float32,
+                       device=maps.device)
+    gv = sy = sx = zero
+    for ty, wy, dwy, oky in ys:
+        a = bx = zero
+        for tx, wx, dwx, okx in xs:
+            idx = (ty * w + tx)[..., None].expand(-1, -1, c)
+            m = torch.where((oky & okx)[..., None],
+                            torch.gather(flat, 1, idx), 0.0)
+            a = a + wx[..., None] * m
+            bx = bx + dwx[..., None] * m
+        gv = gv + wy[..., None] * a
+        sy = sy + dwy[..., None] * a
+        sx = sx + wy[..., None] * bx
+    dy = dx = zero[..., 0]
+    for ch in range(c):
+        dy = dy + values[..., ch] * sy[..., ch]
+        dx = dx + values[..., ch] * sx[..., ch]
+    return (gv if with_gv else None), dy, dx
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -127,6 +191,11 @@ def _on_card(*tensors) -> bool:
     return True
 
 
+def _channels(kernel, c):
+    if not 1 <= c <= 4:
+        raise ValueError(f"the {kernel} kernel takes 1..4 channels, got {c}")
+
+
 def splat_bilinear(loc, values, res: Tuple[int, int]):
     """Bilinear splat (see :func:`splat_bilinear_plain`): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. ``C <= 4`` on the
@@ -139,8 +208,7 @@ def splat_bilinear(loc, values, res: Tuple[int, int]):
     if not _on_card(loc, values):
         return splat_bilinear_plain(loc, values, res)
     h, w = res
-    if not 1 <= c <= 4:
-        raise ValueError(f"the splat kernel takes 1..4 channels, got {c}")
+    _channels("splat", c)
     out = torch.zeros(b, h, w, c, dtype=torch.float32, device=values.device)
     if b * m == 0:
         return out
@@ -164,8 +232,7 @@ def gather_bilinear(maps, loc):
         raise ValueError("maps and loc disagree on B")
     if not _on_card(maps, loc):
         return gather_bilinear_plain(maps, loc)
-    if not 1 <= c <= 4:
-        raise ValueError(f"the gather kernel takes 1..4 channels, got {c}")
+    _channels("gather", c)
     out = torch.empty(b, m, c, dtype=torch.float32, device=maps.device)
     if b * m == 0:
         return out
@@ -175,3 +242,92 @@ def gather_bilinear(maps, loc):
                 (maps.data_ptr(), loc.data_ptr(), out.data_ptr(),
                  b, m, c, h, w, stream))
     return out
+
+
+def gather_fused(maps, loc, values, with_gv: bool = True):
+    """Fused dual-stencil gather (see :func:`gather_fused_plain`): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. ``C <= 4``
+    on the card; ``with_gv=False`` skips the gather values."""
+    _check("maps", maps, 4)
+    _check("loc", loc, 3, 2)
+    _check("values", values, 3)
+    b, h, w, c = maps.shape
+    m = loc.shape[1]
+    if loc.shape[0] != b or values.shape != (b, m, c):
+        raise ValueError("maps, loc and values disagree on [B, M, C]")
+    if not _on_card(maps, loc, values):
+        return gather_fused_plain(maps, loc, values, with_gv)
+    _channels("fused gather", c)
+    dev = maps.device
+    gv = (torch.empty(b, m, c, dtype=torch.float32, device=dev)
+          if with_gv else None)
+    dy = torch.empty(b, m, dtype=torch.float32, device=dev)
+    dx = torch.empty(b, m, dtype=torch.float32, device=dev)
+    if b * m == 0:
+        return gv, dy, dx
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("tef_gather_fused", "gather_fused",
+                (maps.data_ptr(), loc.data_ptr(), values.data_ptr(),
+                 None if gv is None else gv.data_ptr(), dy.data_ptr(),
+                 dx.data_ptr(), b, m, c, h, w, stream))
+    return gv, dy, dx
+
+
+# ------------------------------------------------------------------ autograd
+
+
+def _cot(g):
+    # cotangents arrive as strided views (flip, slices): the kernels take
+    # contiguous float32
+    return g.float().contiguous()
+
+
+class SplatBilinearFn(torch.autograd.Function):
+    """Differentiable splat, the counterpart of ``_splat_vjp``
+    (``pallas_warp.py:394-417``): the backward is one fused gather of the
+    cotangent image, ``(d_values, d_y, d_x) = gather_fused(g, loc,
+    values)``; without a location gradient, a plain gather of ``g``."""
+
+    @staticmethod
+    def forward(ctx, loc, values, res):
+        ctx.save_for_backward(loc, values)
+        return splat_bilinear(loc, values, res)
+
+    @staticmethod
+    def backward(ctx, g):
+        loc, values = ctx.saved_tensors
+        need_loc, need_values = ctx.needs_input_grad[:2]
+        g = _cot(g)
+        d_loc = d_values = None
+        if need_loc:
+            d_values, d_y, d_x = gather_fused(g, loc, values,
+                                              with_gv=need_values)
+            d_loc = torch.stack([d_y, d_x], dim=-1)
+        elif need_values:
+            d_values = gather_bilinear(g, loc)
+        return d_loc, d_values, None
+
+
+class GatherBilinearFn(torch.autograd.Function):
+    """Differentiable gather, the counterpart of ``_gather_vjp``
+    (``pallas_warp.py:420-443``): ``d_maps = splat_bilinear(loc, g)`` and
+    ``(_, d_y, d_x) = gather_fused(maps, loc, g)``, each only when needed."""
+
+    @staticmethod
+    def forward(ctx, maps, loc):
+        ctx.save_for_backward(maps, loc)
+        return gather_bilinear(maps, loc)
+
+    @staticmethod
+    def backward(ctx, g):
+        maps, loc = ctx.saved_tensors
+        need_maps, need_loc = ctx.needs_input_grad[:2]
+        g = _cot(g)
+        d_maps = d_loc = None
+        if need_maps:
+            d_maps = splat_bilinear(loc, g, (maps.shape[1], maps.shape[2]))
+        if need_loc:
+            _, d_y, d_x = gather_fused(maps, loc, g, with_gv=False)
+            d_loc = torch.stack([d_y, d_x], dim=-1)
+        return d_maps, d_loc

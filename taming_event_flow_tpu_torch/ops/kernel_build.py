@@ -60,6 +60,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
+    lib.tef_gather_fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.tef_gather_fused.restype = i32
     lib.tef_error_string.argtypes = [i32]
     lib.tef_error_string.restype = ctypes.c_char_p
 

@@ -8,7 +8,9 @@ zero masks and drop out of every splat.
 
 The JAX package routes ``gather_values``/``splat_values`` through several
 TPU formulations (``ops/backend.py``, ``ops/mxu_lookup.py``, Pallas); here
-both are the one splat/gather pair of :mod:`.cuda_warp`.
+both are the one splat/gather pair of :mod:`.cuda_warp`, differentiable on
+either device through its autograd Functions (under ``torch.inference_mode``
+they launch the forward kernels alone).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from .cuda_warp import gather_bilinear, splat_bilinear
+from .cuda_warp import GatherBilinearFn, SplatBilinearFn
 
 Res = Tuple[int, int]  # (H, W)
 
@@ -48,8 +50,8 @@ def purge_unfeasible(event_loc, pol_mask, res: Res):
 def gather_values(maps, loc):
     """Bilinear gather of ``maps [B, H, W, C]`` at ``loc [B, M, 2]`` (y, x)
     -> ``[B, M, C]``; out-of-frame taps contribute zero."""
-    return gather_bilinear(maps.float().contiguous(),
-                           loc.float().contiguous())
+    return GatherBilinearFn.apply(maps.float().contiguous(),
+                                  loc.float().contiguous())
 
 
 def get_event_flow(flow_map, event_loc):
@@ -64,8 +66,8 @@ def splat_values(loc, values, res: Res, round_idx: bool = False):
     half-to-even first (no gradient through the rounding)."""
     if round_idx:
         loc = torch.round(loc).detach()
-    return splat_bilinear(loc.float().contiguous(),
-                          values.float().contiguous(), res)
+    return SplatBilinearFn.apply(loc.float().contiguous(),
+                                 values.float().contiguous(), tuple(res))
 
 
 def iwe_from_events(warped_loc, pol_mask, res: Res, round_idx: bool = False,

@@ -1,17 +1,21 @@
 """The port's warp ops and encodings against the JAX package's, on the same
 numpy inputs (CPU: the port's wrappers run their plain PyTorch versions; the
 JAX splat/gather run both through Pallas in interpret mode and through
-XLA). The CUDA kernels themselves are held against these plain versions on
-the card by ``chip_smoke.py``."""
+XLA). The autograd Functions are held to the Pallas custom VJPs, and the
+fused dual-stencil gather to the Pallas kernel, in interpret mode. The CUDA
+kernels themselves are held against these plain versions on the card by
+``chip_smoke.py``."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from taming_event_flow_tpu import ops as jops
 from taming_event_flow_tpu.ops import encodings as jenc
+from taming_event_flow_tpu.ops import pallas_warp as jpallas
 from taming_event_flow_tpu.ops import warp as jwarp
 from taming_event_flow_tpu_torch import ops as tops
 
@@ -146,7 +150,10 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     loc, vals = make_events(rng, (8, 10), 32)
     tops.splat_values(torch.from_numpy(loc), torch.from_numpy(vals), (8, 10))
     tops.gather_values(torch.rand(2, 8, 10, 2), torch.from_numpy(loc))
-    assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0}
+    tops.gather_fused(torch.rand(2, 8, 10, 3), torch.from_numpy(loc),
+                      torch.from_numpy(vals))
+    assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
+                             "gather_fused": 0}
 
 
 def test_wrappers_never_fall_back():
@@ -164,7 +171,14 @@ def test_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="contiguous"):
         tops.gather_bilinear(torch.zeros(1, 3, 3, 4)[..., :2],
                              torch.zeros(1, 4, 2))
-    assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0}
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.gather_fused(torch.zeros(1, 3, 3, 2, device="meta"), loc,
+                          torch.zeros(1, 4, 2, device="meta"))
+    with pytest.raises(ValueError, match="disagree"):
+        tops.gather_fused(torch.zeros(1, 3, 3, 2), torch.zeros(1, 4, 2),
+                          torch.zeros(1, 4, 3))
+    assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
+                             "gather_fused": 0}
 
 
 def test_set_tf32_sets_both_flags():
@@ -180,3 +194,143 @@ def test_set_tf32_sets_both_flags():
     finally:
         torch.backends.cudnn.allow_tf32 = old[0]
         torch.backends.cuda.matmul.allow_tf32 = old[1]
+
+
+# ----------------------------------------------- fused gather and autograd
+
+
+@pytest.mark.parametrize("res,m", SHAPES)
+@pytest.mark.parametrize("c", [2, 4])
+def test_gather_fused_matches_pallas(rng, res, m, c):
+    """Non-integer and exactly integer coordinates (on one axis or both),
+    in frame and out of frame, against ``_gather_fused_raw`` in interpret
+    mode."""
+    loc, vals = make_events(rng, res, m, c=c)
+    loc[:, m // 4: m // 3, 1] = np.round(loc[:, m // 4: m // 3, 1])
+    maps = rng.normal(size=(2, res[0], res[1], c)).astype(np.float32)
+    ref = jpallas._gather_fused_raw(jnp.asarray(maps), jnp.asarray(loc),
+                                    jnp.asarray(vals))
+    out = tops.gather_fused_plain(torch.from_numpy(maps),
+                                  torch.from_numpy(loc),
+                                  torch.from_numpy(vals))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+    gv, dy, dx = tops.gather_fused(torch.from_numpy(maps),
+                                   torch.from_numpy(loc),
+                                   torch.from_numpy(vals), with_gv=False)
+    assert gv is None
+    torch.testing.assert_close(dy, out[1], rtol=0, atol=0)
+    torch.testing.assert_close(dx, out[2], rtol=0, atol=0)
+
+
+def test_gather_fused_dual_stencil_at_integers():
+    """At an integer coordinate the derivative stencil spans three taps,
+    (-0.5, -1, +0.5) at (y-1, y, y+1); at a fractional one two, (-1, +1)."""
+    h, w = 5, 6
+    maps = torch.zeros(1, h, w, 1)
+    maps[0, :, :, 0] = torch.arange(h, dtype=torch.float32)[:, None] ** 2
+    loc = torch.tensor([[[2.0, 3.0], [2.25, 3.0], [0.0, 3.0]]])
+    gv, dy, dx = tops.gather_fused(maps, loc, torch.ones(1, 3, 1))
+    # y = 2: -0.5 * 1 - 1 * 4 + 0.5 * 9; y = 2.25: -4 + 9; y = 0: tap -1
+    # is out of frame: -1 * 0 + 0.5 * 1
+    torch.testing.assert_close(dy[0], torch.tensor([0.0, 5.0, 0.5]),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(gv[0, :, 0], torch.tensor([4.0, 5.25, 0.0]),
+                               rtol=0, atol=0)
+    # x = 3 is an integer on a map constant along x: the stencil's weights
+    # sum to -1 there (jax's tie rule), so dx = -gv
+    torch.testing.assert_close(dx[0], -gv[0, :, 0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("res,m", SHAPES)
+def test_splat_fn_grads_match_pallas(rng, res, m):
+    """``SplatBilinearFn`` against ``pallas_warp.splat_grad`` (the Pallas
+    custom VJP, interpret mode): values 1e-5, location gradients atol 1e-4
+    (the ``tests/test_pallas.py`` tolerances)."""
+    loc, vals = make_events(rng, res, m, integers=False)
+    cot = rng.normal(size=(2, res[0], res[1], 3)).astype(np.float32)
+
+    def jloss(lc, v):
+        return jnp.sum(jpallas.splat_grad(lc, v, res) * cot)
+
+    ref_v = jpallas.splat_grad(jnp.asarray(loc), jnp.asarray(vals), res)
+    ref_dl, ref_dv = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(loc),
+                                                     jnp.asarray(vals))
+    tl = torch.from_numpy(loc).requires_grad_()
+    tv = torch.from_numpy(vals).requires_grad_()
+    out = tops.SplatBilinearFn.apply(tl, tv, res)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_v),
+                               **TOL)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(ref_dv), **TOL)
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(ref_dl),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("res,m", SHAPES)
+def test_gather_fn_grads_match_pallas(rng, res, m):
+    """``GatherBilinearFn`` against ``pallas_warp.gather_grad``, with the
+    same tolerances."""
+    loc, _ = make_events(rng, res, m, integers=False)
+    maps = rng.normal(size=(2, res[0], res[1], 3)).astype(np.float32)
+    cot = rng.normal(size=(2, m, 3)).astype(np.float32)
+
+    def jloss(mp, lc):
+        return jnp.sum(jpallas.gather_grad(mp, lc) * cot)
+
+    ref_v = jpallas.gather_grad(jnp.asarray(maps), jnp.asarray(loc))
+    ref_dm, ref_dl = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(maps),
+                                                     jnp.asarray(loc))
+    tm = torch.from_numpy(maps).requires_grad_()
+    tl = torch.from_numpy(loc).requires_grad_()
+    out = tops.GatherBilinearFn.apply(tm, tl)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_v),
+                               **TOL)
+    np.testing.assert_allclose(tm.grad.numpy(), np.asarray(ref_dm), **TOL)
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(ref_dl),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_functions_skip_the_halves_nobody_needs(rng, monkeypatch):
+    """A constant location skips the fused gather (the splat's value
+    gradient is then a plain gather); constant values skip the gather
+    values; under inference mode only the forward runs."""
+    loc, vals = make_events(rng, (8, 10), 32, c=2, integers=False)
+    maps = torch.rand(2, 8, 10, 2, requires_grad=True)
+    calls = []
+    real = tops.cuda_warp.gather_fused
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("with_gv", True))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tops.cuda_warp, "gather_fused", spy)
+    tl = torch.from_numpy(loc)
+    tops.gather_values(maps, tl).sum().backward()
+    assert calls == [] and maps.grad is not None
+    tops.splat_values(tl.clone().requires_grad_(), torch.from_numpy(vals),
+                      (8, 10)).sum().backward()
+    assert calls == [False]
+    tv = torch.from_numpy(vals).requires_grad_()
+    tops.splat_values(tl, tv, (8, 10)).sum().backward()
+    assert calls == [False]
+    # d_values of a summed splat: each event's in-frame tap weights
+    ones = torch.ones(2, 8, 10, vals.shape[-1])
+    torch.testing.assert_close(tv.grad, tops.gather_values(ones, tl),
+                               rtol=0, atol=0)
+    with torch.inference_mode():
+        out = tops.splat_values(tl.clone().requires_grad_(),
+                                torch.from_numpy(vals), (8, 10))
+    assert not out.requires_grad and calls == [False]
+
+
+def test_backward_takes_strided_cotangents(rng):
+    """``get_event_flow`` flips the gather's output: its cotangent arrives
+    as a strided view and is made contiguous before the kernels."""
+    loc, _ = make_events(rng, (8, 10), 32, c=2, integers=False)
+    tl = torch.from_numpy(loc).requires_grad_()
+    maps = torch.rand(2, 8, 10, 2, requires_grad=True)
+    flow = tops.get_event_flow(maps, tl)
+    (flow[..., :1] * 3.0).sum().backward()
+    assert torch.isfinite(tl.grad).all() and torch.isfinite(maps.grad).all()

@@ -135,7 +135,8 @@ def test_slice_matches_jax_pipeline(models, runtime, jump_at):
                  windows, jump_at)
     reset_launches()
     ours = _drive(EvalPipeline(cfg, tm, device="cpu"), windows, jump_at)
-    assert LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0}
+    assert LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
+                        "gather_fused": 0}
     _assert_metrics_close(ours, ref)
 
 
