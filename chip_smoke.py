@@ -19,7 +19,25 @@ one NVIDIA card.
    counters must show the splat and the gather ran (and the backward kernel
    did not). Then one window in float32 on the card and on the CPU (plain
    versions), whose metrics must agree.
-4. Training phase: the training configuration (``configs/train_flow.yml``
+4. Row-gather phase: the row gather kernel against its plain version
+   (bitwise) at the study's four shapes (``tools/bench_dma_gather.py``:
+   307,200 x W rows, W = 8 and 128, 655,360 scattered and contiguous
+   indices), at the rectified remap's (a DSEC window's P*H*W = 3,072,000
+   rows of W = 2, a 1-based index with a zeroed border) and at W = 1, an
+   unaligned W = 3 and a W = 4 table at a 4-byte offset (the scalar path),
+   timed beside ``torch.index_select`` and its bytes bound.
+5. Rectified DSEC phase: the eval protocol of step 3 on a synthetic
+   rectified sequence (raw integer events, a radial forward map giving the
+   list's fractional coordinates through ``data.rectify_events``, a
+   backward mapping turned into ``remap_idx`` by ``data.remap_index`` with
+   a zeroed border). Three windows derive the count input on the card from
+   the raw coordinates and ``EvalPipeline.cur_ridx`` (the row gather must
+   launch on each), three more ship the host-built input; on one window
+   the derived input and event mask must equal the host-built ones
+   bitwise, and float32 metrics card against CPU must agree. Then
+   ``compute_pol_iwe`` on that window's flow under both rounding settings,
+   card against CPU.
+6. Training phase: the training configuration (``configs/train_flow.yml``
    at the batch ``bench.py`` measures: 128x128, P=10, B=8, 8,192 events per
    pass and lane, Iterative loss, Adam after clip 100) through
    ``make_train_step`` for one warm-up and five timed steps; losses must be
@@ -28,7 +46,7 @@ one NVIDIA card.
    against the CPU at B=1 (:func:`card_vs_cpu`): the step's loss, the loss's
    flow gradient on identical flows and the model's parameter gradients
    for one flow cotangent must agree.
-5. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+7. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 It imports nothing of JAX or the JAX package.
@@ -66,6 +84,11 @@ FUSED_M = PASSES * TRAIN_N  # the IWE splat at tref 5 holds all ten windows
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, float32
 TRAIN_GRAD_TOL = 1e-3  # max abs error per tensor, x that tensor's max |g|
 JITTER = 1e-6  # relative move of weights or flows for the CPU's own gap
+# rectified slice: a mild radial distortion and a border of out-of-source
+# pixels, as cv2's remap leaves around a rectified DSEC frame
+RECT_K = 0.05
+RECT_BORDER = 4
+RECT_TIMING_ROUNDS = 3  # passes over the windows per route, timed in turns
 TRAIN_LOSS = {"res": TRAIN_RES, "passes_loss": PASSES, "scales_loss": 1,
               "iterative_mode": "two", "round_ts": False}
 TRAIN_OPT = {"name": "Adam", "lr": 1e-5}
@@ -102,8 +125,9 @@ def gpu_line():
 
 
 def time_ms(fn, reps=50, warmup=5):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events, after warm-up; inputs stay L2-warm between calls)."""
+    """Mean time per call of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, after warm-up; inputs stay L2-warm between calls): the device's
+    time, or the host's launch time where that is longer."""
     import torch
 
     for _ in range(warmup):
@@ -407,6 +431,105 @@ def fused_phase(rng):
     return {"gather_fused": entry}
 
 
+def radial_maps():
+    """A mild radial distortion at ``RES``: the forward map in the file's
+    layout (``[y_raw, x_raw] = (x_rect, y_rect)``) and an approximate
+    backward mapping (``[y_rect, x_rect] = (x_raw, y_raw)``), float32."""
+    h, w = RES
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    r2 = ((yy - cy) ** 2 + (xx - cx) ** 2) / (cy ** 2 + cx ** 2)
+    fwd = np.stack([cx + (xx - cx) * (1 + RECT_K * r2),
+                    cy + (yy - cy) * (1 + RECT_K * r2)], -1)
+    bwd = np.stack([cx + (xx - cx) * (1 - RECT_K * r2),
+                    cy + (yy - cy) * (1 - RECT_K * r2)], -1)
+    return fwd.astype(np.float32), bwd.astype(np.float32)
+
+
+def rectified_index(bwd):
+    """``remap_idx [H, W]`` of the backward mapping (``data.remap_index``)
+    with a zeroed border: the out-of-source pixels cv2 leaves."""
+    from taming_event_flow_tpu_torch.data import remap_index
+
+    ridx = remap_index(bwd, RES)
+    b = RECT_BORDER
+    ridx[:b] = ridx[-b:] = 0
+    ridx[:, :b] = ridx[:, -b:] = 0
+    return ridx
+
+
+def row_gather_phase(rng):
+    """The row gather at the study's shapes (the twin's inputs and
+    measurement), at the rectified remap's (the count rows of a DSEC window
+    and the index ``derive_count_input`` builds from a remap index) and at
+    widths that take the scalar path; bitwise against its plain version."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+    from taming_event_flow_tpu_torch.tools import bench_dma_gather as study
+
+    dev = torch.device(DEVICE)
+    err = 0.0
+    studies = {}
+    for w in study.STUDY_WIDTHS:
+        table, streams = study.study_inputs(study.STUDY_ROWS, w,
+                                            study.STUDY_M, device=dev)
+        for stream, idx in streams.items():
+            r = study.measure(table, idx)
+            err = max(err, r.pop("max_abs_err"))
+            studies[f"W{w}_{stream}"] = r
+            rate = {k: study.STUDY_M / (r[k] * 1e-3) / 1e6
+                    for k in ("ms", "library_ms", "plain_ms", "device_ms",
+                              "library_device_ms") if r[k] > 0}
+            print(f"row_gather study W={w} {stream}: {r}; M rows/s {rate}")
+        del table, streams
+
+    # the remap: P lanes of H*W count rows plus one zero row each, gathered
+    # by the 1-based index (0 -> the zero row), as derive_count_input does
+    h, w = RES
+    rows = h * w + 1
+    ridx = torch.from_numpy(rectified_index(radial_maps()[1])).to(dev)
+    counts = rng.integers(0, 4, (PASSES, rows, 2)).astype(np.float32)
+    counts[:, -1] = 0.0
+    table = torch.from_numpy(counts.reshape(-1, 2)).to(dev)
+    src = torch.where(ridx > 0, ridx - 1, h * w).reshape(1, -1).to(
+        torch.int32)
+    idx = (src + torch.arange(PASSES, dtype=torch.int32,
+                              device=dev)[:, None] * rows).reshape(-1)
+    check(idx.shape[0] == PASSES * h * w, "remap shape")
+    remap = study.measure(table, idx)
+    err = max(err, remap.pop("max_abs_err"))
+    print(f"row_gather remap (M={idx.shape[0]}, W=2): {remap}")
+
+    # the scalar path: W = 1, an odd W, and a table off 16-byte alignment
+    for r_, w_, m_, off in ((100000, 1, 200000, 0), (100000, 3, 200001, 0),
+                            (100000, 4, 200000, 1)):
+        buf = torch.from_numpy(rng.normal(size=r_ * w_ + off)
+                               .astype(np.float32)).to(dev)
+        tab = buf[off:].view(r_, w_)
+        ix = torch.from_numpy(rng.integers(-3, r_ + 3, m_)
+                              .astype(np.int32)).to(dev)
+        got = cuda_warp.row_gather(tab, ix)
+        ref = cuda_warp.row_gather_plain(tab, ix)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref),
+              f"row_gather disagrees with its plain version at W={w_}, "
+              f"offset {off * 4} B")
+        print(f"row_gather W={w_} (table at a {off * 4}-byte offset, some "
+              f"indices out of range): bitwise equal")
+    entry = {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "taming_event_flow_tpu_torch/csrc/warp_kernels.cu",
+        "replaces": "scripts/bench_dma_gather.py:54",
+        "max_abs_err": err,
+        **remap,
+        "bound_by": "bytes",
+        "study": studies,
+    }
+    return {"row_gather": entry}
+
+
 # --------------------------------------------------------------- slice phase
 
 
@@ -433,9 +556,10 @@ def synthetic_windows(rng, n_windows):
     return windows
 
 
-def run_windows(pipe, windows):
+def run_windows(pipe, windows, flows=None):
     """Drive the pipeline as the eval loop does; returns per-window host
-    metrics and the seconds per window (synchronised)."""
+    metrics and the seconds per window (synchronised). Each window's last
+    flow is appended to ``flows`` when given."""
     import torch
 
     mets, secs = [], []
@@ -443,7 +567,9 @@ def run_windows(pipe, windows):
         t0 = time.perf_counter()
         for b in passes:
             b = pipe.ensure_bucket(b)
-            pipe.ingest(b, {"ts": 0.0})
+            flow = pipe.ingest(b, {"ts": 0.0})
+        if flows is not None:
+            flows.append(flow)
         check(pipe.passes_done == pipe.passes, "window did not complete")
         m = pipe.boundary_metrics(passes[-1], {"ts": 0.0})
         if pipe.device.type == "cuda":
@@ -478,7 +604,8 @@ def slice_phase(rng, n_windows, profile_dir):
     launches = dict(LAUNCHES)
     # per window: the RSAT/FWL splat pair and one gather per pass
     expect = {"splat_bilinear": 2 * n_windows,
-              "gather_bilinear": PASSES * n_windows, "gather_fused": 0}
+              "gather_bilinear": PASSES * n_windows, "gather_fused": 0,
+              "row_gather": 0}
     check(launches == expect,
           f"eval path launches {launches}, expected {expect}")
     for i, m in enumerate(mets):
@@ -495,24 +622,162 @@ def slice_phase(rng, n_windows, profile_dir):
         profile_window(pipe, windows[-1], profile_dir)
 
     # float32 on the card (TF32 off) against the CPU's plain versions
-    cfg32 = copy.deepcopy(DSEC_CONFIG)
-    del cfg32["metrics"]["inference_dtype"]
-    card = EvalPipeline(cfg32, model, device=DEVICE)
-    (m_card,), _ = run_windows(card, windows[:1])
-    cpu_model = copy.deepcopy(model).cpu()
-    t0 = time.perf_counter()
-    cpu = EvalPipeline(cfg32, cpu_model, device="cpu")
-    (m_cpu,), _ = run_windows(cpu, windows[:1])
-    print(f"cpu window: {time.perf_counter() - t0:.1f} s")
-    for k in ("fwl", "rsat", "aee"):
-        a, b = float(m_card[k]), float(m_cpu[k])
-        print(f"f32 {k}: card {a:.7f} cpu {b:.7f} rel {abs(a - b) / abs(b):.2e}")
-        check(math.isclose(a, b, rel_tol=METRIC_RTOL, abs_tol=METRIC_ATOL),
-              f"{k}: card {a} vs cpu {b} beyond rtol {METRIC_RTOL}")
+    m_card = check_f32_card_vs_cpu(model, DSEC_CONFIG, windows[:1])
     for k in ("fwl", "rsat", "aee"):
         print(f"bf16 vs f32 {k} (window 0): "
               f"{float(mets[0][k]):.7f} vs {float(m_card[k]):.7f}")
-    return launches, ms_pass
+    return launches, ms_pass, model
+
+
+def check_f32_card_vs_cpu(model, config, windows, ridx=None, flows=None):
+    """One window in float32 (TF32 off) on the card and on the CPU (plain
+    versions): FWL/RSAT/AEE must agree. ``ridx`` sets ``cur_ridx`` on both;
+    the card's last flow goes to ``flows``."""
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    cfg32 = copy.deepcopy(config)
+    del cfg32["metrics"]["inference_dtype"]
+    card = EvalPipeline(cfg32, model, device=DEVICE)
+    card.cur_ridx = ridx
+    (m_card,), _ = run_windows(card, windows, flows)
+    t0 = time.perf_counter()
+    cpu = EvalPipeline(cfg32, copy.deepcopy(model).cpu(), device="cpu")
+    cpu.cur_ridx = ridx
+    (m_cpu,), _ = run_windows(cpu, windows)
+    print(f"cpu window: {time.perf_counter() - t0:.1f} s")
+    for k in ("fwl", "rsat", "aee"):
+        a, b = float(m_card[k]), float(m_cpu[k])
+        print(f"f32 {k}: card {a:.7f} cpu {b:.7f} "
+              f"rel {abs(a - b) / abs(b):.2e}")
+        check(math.isclose(a, b, rel_tol=METRIC_RTOL, abs_tol=METRIC_ATOL),
+              f"{k}: card {a} vs cpu {b} beyond rtol {METRIC_RTOL}")
+    return m_card
+
+
+def rectified_windows(rng, n_windows, fwd, ridx):
+    """``synthetic_windows`` made rectified as the loader makes them
+    (``data/base.py assemble_sample``): the raw integer coordinates go to
+    ``event_raw_xy``, the list carries the forward map's fractional ones
+    (``data.rectify_events``), and the host builds the count input at the
+    raw coordinates and remaps it through the index (zero where it is 0)."""
+    from taming_event_flow_tpu_torch.data import (
+        events_to_channels_np,
+        rectify_events,
+    )
+
+    h, w = RES
+    src = np.where(ridx > 0, ridx - 1, 0).reshape(-1)
+    windows = synthetic_windows(rng, n_windows)
+    for passes in windows:
+        for b in passes:
+            ev = b["event_list"]
+            ys, xs, ps = (ev[0, :, k].copy() for k in (1, 2, 3))
+            b["event_raw_xy"] = np.stack([ys, xs], -1).astype(
+                np.uint16)[None]
+            rx, ry = rectify_events(fwd, xs, ys)
+            ev[0, :, 1], ev[0, :, 2] = ry, rx
+            cnt = events_to_channels_np(xs, ys, ps, RES).reshape(-1, 2)
+            net = np.where((ridx > 0)[..., None],
+                           cnt[src].reshape(h, w, 2), 0.0).astype(np.float32)
+            b["net_input"] = net[None]
+            b["event_mask"] = (net.sum(-1, keepdims=True) > 0).astype(
+                np.float32)[None]
+    return windows
+
+
+def rectified_phase(rng, model, n_windows, ms_plain, profile_dir):
+    """The DSEC protocol on a rectified sequence: the count input derived
+    on the card (raw coordinates + ``cur_ridx``, one row gather per window)
+    against the host-built input shipped, bitwise; float32 metrics card
+    against CPU; ``compute_pol_iwe`` card against CPU."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        compute_pol_iwe,
+        reset_launches,
+    )
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+    from taming_event_flow_tpu_torch.training.step import _derive_inputs
+
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    windows = rectified_windows(rng, n_windows, fwd, ridx[0])
+    pipe = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+    pipe.cur_ridx = ridx
+
+    reset_launches()
+    mets, secs = run_windows(pipe, windows)
+    launches = dict(LAUNCHES)
+    expect = {"splat_bilinear": 2 * n_windows,
+              "gather_bilinear": PASSES * n_windows, "gather_fused": 0,
+              "row_gather": n_windows}
+    check(launches == expect,
+          f"rectified path launches {launches}, expected {expect}")
+    for i, m in enumerate(mets):
+        check_metrics(m, f"rectified window {i}")
+
+    # the same windows with the host-built input shipped (no index): the
+    # metrics agree (same inputs, checked bitwise below; the splats'
+    # atomics may reorder the RSAT/FWL sums), then both routes are timed
+    # in turns over RECT_TIMING_ROUNDS passes through the windows
+    host = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+    host_mets, _ = run_windows(host, windows)
+    for i, (a, b) in enumerate(zip(mets, host_mets)):
+        for k in ("fwl", "rsat", "aee"):
+            check(math.isclose(float(a[k]), float(b[k]), rel_tol=KERNEL_RTOL,
+                               abs_tol=KERNEL_ATOL),
+                  f"rectified window {i}: {k} derived {a[k]} vs host {b[k]}")
+    secs = {"derived": [], "host": []}
+    for _ in range(RECT_TIMING_ROUNDS):
+        for route, runner in (("derived", pipe), ("host", host)):
+            secs[route] += run_windows(runner, windows)[1]
+    ms_derived, ms_host = (float(np.mean(secs[r])) / PASSES * 1e3
+                           for r in ("derived", "host"))
+    print("rectified windows, derived / host-built input: " + ", ".join(
+        f"{a * 1e3:.2f} / {b * 1e3:.2f} ms"
+        for a, b in zip(secs["derived"], secs["host"])))
+    print(f"rectified slice: {ms_derived:.3f} ms/pass with the count input "
+          f"derived on the card, {ms_host:.3f} ms/pass with the host-built "
+          f"input shipped (mean of {len(secs['host'])} warm windows each, "
+          f"in turns); unrectified slice {ms_plain:.3f} ms/pass (bf16 "
+          f"forward); launches {launches}")
+
+    if profile_dir:
+        profile_run(lambda: run_windows(pipe, windows[-1:]), profile_dir,
+                    "rectified", trace=False)
+
+    # one window: derived input and mask bitwise the host-built ones
+    passes = [pipe.ensure_bucket(b) for b in windows[0]]
+    stack = lambda k: torch.from_numpy(  # noqa: E731
+        np.stack([b[k] for b in passes])).to(DEVICE)
+    x, _, emask = _derive_inputs(RES, stack("event_list"), None, None, None,
+                                 stack("event_raw_xy"), pipe.cur_ridx)
+    check(torch.equal(x, stack("net_input"))
+          and torch.equal(emask, stack("event_mask")),
+          "derived rectified input differs from the host-built one")
+    print(f"derived rectified input and event mask equal the host-built "
+          f"ones bitwise ({int((x.sum(-1) > 0).sum())} active pixels over "
+          f"{PASSES} passes, {int((pipe.cur_ridx == 0).sum())} out-of-source "
+          f"pixels)")
+
+    flows = []
+    check_f32_card_vs_cpu(model, DSEC_CONFIG, windows[:1], ridx, flows)
+    flow = flows[0]
+    ev = stack("event_list")[-1]
+    p = ev[..., 3]
+    pol = torch.stack([p > 0, p < 0], -1).float()
+    for rounding in ((True, True), (False, False)):
+        got = compute_pol_iwe(flow, ev, RES, pol, *rounding)
+        ref = compute_pol_iwe(flow.cpu(), ev.cpu(), RES, pol.cpu(),
+                              *rounding)
+        e = float((got.cpu() - ref).abs().max())
+        check(torch.allclose(got.cpu(), ref, rtol=KERNEL_RTOL,
+                             atol=KERNEL_ATOL),
+              f"compute_pol_iwe {rounding}: card vs cpu {e}")
+        print(f"compute_pol_iwe (round_idx, round_flow) = {rounding}: card "
+              f"vs cpu max abs err {e:.3e} (max {float(ref.max()):.3f})")
+    return launches, ms_derived, ms_host
 
 
 def profile_run(fn, out_dir, tag, trace=True):
@@ -804,8 +1069,10 @@ def train_phase(rng, profile_dir):
               f"{losses[-1]:.7f}  {secs[-1] * 1e3:.2f} ms")
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the training path")
+    for name in ("splat_bilinear", "gather_bilinear", "gather_fused"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the training path")
+    check(launches["row_gather"] == 0, "the training path has no row gather")
     check(all(a != b for a, b in zip(losses, losses[1:])),
           f"the loss did not change between steps: {losses}")
     check(state.step == len(windows), "step count")
@@ -854,19 +1121,30 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     kernels = kernel_phase(rng)
     kernels.update(fused_phase(rng))
-    eval_launches, ms_pass = slice_phase(rng, N_WINDOWS, args.profile)
+    # the row-gather and rectified phases draw from a stream of their own,
+    # so the earlier phases see the same data as before them
+    rng_rect = np.random.default_rng([args.seed, 1])
+    kernels.update(row_gather_phase(rng_rect))
+    eval_launches, ms_pass, model = slice_phase(rng, N_WINDOWS, args.profile)
+    rect_launches, ms_rect, ms_rect_host = rectified_phase(
+        rng_rect, model, N_WINDOWS, ms_pass, args.profile)
+    del model
     train_launches, ms_step = train_phase(rng, args.profile)
 
+    paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
+             "train": train_launches}
     entries = []
-    for name in ("splat_bilinear", "gather_bilinear", "gather_fused"):
+    for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
+                 "row_gather"):
         e = dict(kernels[name])
-        e["launches"] = eval_launches[name] + train_launches[name]
-        e["launches_by_path"] = {"dsec_eval": eval_launches[name],
-                                 "train": train_launches[name]}
+        e["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
         entries.append(e)
     print(f"splat on fractional input: "
           f"{kernels['splat_bilinear_fractional_ms']:.4f} ms")
     print(f"slice_ms_per_pass {ms_pass:.4f}")
+    print(f"rectified_ms_per_pass {ms_rect:.4f} (derived on the card), "
+          f"{ms_rect_host:.4f} (host-built input shipped)")
     print(f"train_ms_per_step {ms_step:.4f}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)

@@ -1,5 +1,5 @@
-// Bilinear splat, gather and fused dual-stencil gather (the backward of both)
-// for Hopper (sm_90a), with a plain C interface
+// Bilinear splat, gather and fused dual-stencil gather (the backward of both),
+// and the row gather, for Hopper (sm_90a), with a plain C interface
 // that taming_event_flow_tpu_torch/ops/cuda_warp.py loads through ctypes.
 //
 // Both kernels evaluate the 4-tap bilinear stencil
@@ -72,6 +72,24 @@
 // shape). Products and sums use __fmul_rn/__fadd_rn in a fixed order (y tap,
 // then x tap, then channel) that the plain PyTorch version repeats, so the
 // two agree bitwise.
+//
+// row_gather_kernel replaces the TPU row fetch `dma_gather`
+// (scripts/bench_dma_gather.py:54, call :99), which issues one HBM->VMEM DMA
+// per row through a ring of DMA semaphores. It computes the row gather
+//     out[m, :] = table[clamp(idx[m], 0, R - 1), :]
+// for table [R, W] float32, idx [M] int32, out [M, W]. An index outside
+// [0, R - 1] is clamped to it (the rule of XLA's gather), so the kernel never
+// reads outside the table; the plain version clamps the same way. The DMA
+// ring's depth and block have no counterpart here: one thread per (row,
+// vector) of the output, and the card hides the latency of scattered reads
+// by keeping many threads in flight. A vector is a float4 when W % 4 == 0 and
+// table and out are 16-byte aligned, a float2 when W % 2 == 0 and they are
+// 8-byte aligned, one float otherwise; neighbouring threads read one row's
+// vectors and write neighbouring addresses. Offsets are int64 (idx * W
+// overflows int32 for large tables). Bound on this card: bytes,
+// M * (4 + 2 * 4W) (the index read once, each gathered row read once and
+// written once; at the rectified DSEC remap, M = 3,072,000 and W = 2: 61 MB,
+// ~18 us at 3.35 TB/s). It is a copy, so it is bitwise the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -260,6 +278,30 @@ void launch_gather(const float* maps, const float* loc, float* out, int B,
   gather_kernel<C><<<grid, kThreads, 0, s>>>(maps, loc, out, M, H, W);
 }
 
+// V is float4, float2 or float; nv = W / (floats per V) vectors per row.
+template <typename V>
+__global__ void row_gather_kernel(const V* __restrict__ table,
+                                  const int* __restrict__ idx,
+                                  V* __restrict__ out, int64_t total, int R,
+                                  int nv) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int64_t m = t / nv;
+  const int v = (int)(t - m * nv);
+  const int r = min(max(__ldg(idx + m), 0), R - 1);
+  out[t] = table[(int64_t)r * nv + v];
+}
+
+template <typename V>
+void launch_row_gather(const float* table, const int* idx, float* out,
+                       int64_t M, int R, int nv, cudaStream_t s) {
+  const int64_t total = M * nv;
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  row_gather_kernel<V><<<blocks, kThreads, 0, s>>>(
+      reinterpret_cast<const V*>(table), idx, reinterpret_cast<V*>(out),
+      total, R, nv);
+}
+
 }  // namespace
 
 extern "C" {
@@ -302,6 +344,25 @@ int tef_gather_fused(const float* maps, const float* loc, const float* values,
     case 3: launch_gather_fused<3>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
     case 4: launch_gather_fused<4>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
     default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[m, :] = table[clamp(idx[m], 0, R - 1), :]; table [R, W], out [M, W].
+int tef_row_gather(const float* table, const int* idx, float* out, int64_t M,
+                   int R, int W, void* stream) {
+  if (M <= 0) return 0;
+  if (R <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if ((M * W + kThreads - 1) / kThreads > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;  // beyond the grid's x limit
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t both = (uintptr_t)table | (uintptr_t)out;
+  if (W % 4 == 0 && both % 16 == 0) {
+    launch_row_gather<float4>(table, idx, out, M, R, W / 4, s);
+  } else if (W % 2 == 0 && both % 8 == 0) {
+    launch_row_gather<float2>(table, idx, out, M, R, W / 2, s);
+  } else {
+    launch_row_gather<float>(table, idx, out, M, R, W, s);
   }
   return (int)cudaGetLastError();
 }

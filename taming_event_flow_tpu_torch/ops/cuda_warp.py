@@ -1,11 +1,14 @@
-"""Bilinear splat and gather: hand-written CUDA kernels on the card, their
-plain PyTorch versions on the CPU, and the autograd Functions around them.
+"""Bilinear splat and gather, and the row gather: hand-written CUDA kernels
+on the card, their plain PyTorch versions on the CPU, and the autograd
+Functions around the bilinear pair.
 
 Counterpart of the Pallas kernels in ``taming_event_flow_tpu/ops/
 pallas_warp.py`` (``_splat_kernel``, ``_gather_kernel`` and
-``_gather_fused_kernel``) and of its custom VJPs (``_splat_vjp``,
-``_gather_vjp``); the kernels live in ``csrc/warp_kernels.cu`` (see its
-header for the design and what bounds each on an H100).
+``_gather_fused_kernel``), of its custom VJPs (``_splat_vjp``,
+``_gather_vjp``) and of the row fetch ``dma_gather``
+(``scripts/bench_dma_gather.py``); the kernels live in
+``csrc/warp_kernels.cu`` (see its header for the design and what bounds
+each on an H100).
 
 The wrappers dispatch on the device of the tensors they are given: a CPU
 tensor goes to the plain version in this module, a CUDA tensor to the
@@ -25,7 +28,8 @@ from typing import Tuple
 
 import torch
 
-LAUNCHES = {"splat_bilinear": 0, "gather_bilinear": 0, "gather_fused": 0}
+LAUNCHES = {"splat_bilinear": 0, "gather_bilinear": 0, "gather_fused": 0,
+            "row_gather": 0}
 
 
 def reset_launches() -> None:
@@ -157,6 +161,17 @@ def gather_fused_plain(maps, loc, values, with_gv: bool = True):
     return (gv if with_gv else None), dy, dx
 
 
+def row_gather_plain(table, idx):
+    """``out[m, :] = table[clamp(idx[m], 0, R - 1), :]``: an index outside
+    the table is clamped to its first or last row, as the kernel does.
+
+    :param table: ``[R, W]`` float32.
+    :param idx: ``[M]`` int32.
+    :return: ``[M, W]`` float32.
+    """
+    return table[idx.long().clamp(0, table.shape[0] - 1)]
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -272,6 +287,36 @@ def gather_fused(maps, loc, values, with_gv: bool = True):
                  None if gv is None else gv.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), b, m, c, h, w, stream))
     return gv, dy, dx
+
+
+def row_gather(table, idx):
+    """Row gather (see :func:`row_gather_plain`): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. No path differentiates
+    through it (the count input and the per-event flow lookup are
+    constants), so a table that requires grad raises under grad mode
+    instead of being detached quietly."""
+    _check("table", table, 2)
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(f"idx must be contiguous [M], got {tuple(idx.shape)}")
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise RuntimeError("row_gather has no gradient; detach the table")
+    r, w = table.shape
+    m = idx.shape[0]
+    if r == 0 and m > 0:
+        raise ValueError("cannot gather from an empty table")
+    if not _on_card(table, idx):
+        return row_gather_plain(table, idx)
+    out = torch.empty(m, w, dtype=torch.float32, device=table.device)
+    if m * w == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("tef_row_gather", "row_gather",
+                (table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, r, w,
+                 stream))
+    return out
 
 
 # ------------------------------------------------------------------ autograd

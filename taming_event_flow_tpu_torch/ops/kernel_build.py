@@ -62,6 +62,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i32
     lib.tef_gather_fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.tef_gather_fused.restype = i32
+    lib.tef_row_gather.argtypes = [ptr, ptr, ptr, ctypes.c_int64, i32, i32,
+                                   ptr]
+    lib.tef_row_gather.restype = i32
     lib.tef_error_string.argtypes = [i32]
     lib.tef_error_string.restype = ctypes.c_char_p
 

@@ -110,8 +110,9 @@ def unpack_window(window: Dict[str, torch.Tensor],
     arrays may be narrower (``step.py:53-97``). A window without
     ``net_input`` derives the count encoding from its event lists
     (:func:`..ops.encodings.derive_count_input`, the loader's construction;
-    ``res`` is required then). The packed ``event_txy`` wire is not ported
-    (ROADMAP.md, packed wire formats)."""
+    ``res`` is required then), a rectified one from its raw coordinates
+    ``event_raw_xy`` and its rectification index ``remap_idx``. The packed
+    ``event_txy`` wire is not ported (ROADMAP.md, packed wire formats)."""
     if "event_txy" in window:
         raise NotImplementedError(
             "the packed event_txy window wire is not ported yet; see "
@@ -120,7 +121,9 @@ def unpack_window(window: Dict[str, torch.Tensor],
     if net is None:
         if res is None:
             raise ValueError("a window without net_input needs res")
-        net = derive_count_input(window["event_list"], res)
+        net = derive_count_input(window["event_list"], res,
+                                 raw_xy=window.get("event_raw_xy"),
+                                 remap_idx=window.get("remap_idx"))
     return {
         "net_input": net.float(),
         "event_list": window["event_list"],
@@ -188,12 +191,14 @@ def _cast(carry, x, dtype):
     return tuple(c.to(dtype) for c in carry), x.to(dtype)
 
 
-def _derive_inputs(res, ev, x, pol, emask):
+def _derive_inputs(res, ev, x, pol, emask, raw=None, ridx=None):
     """Inputs left at ``None`` derive from the event list, as the loader
-    builds them: the count encoding, ``[p > 0, p < 0]`` polarity masks, and
-    the event mask ``counts > 0``."""
+    builds them: the count encoding (from the raw coordinates ``raw`` and
+    the rectification index ``ridx`` of a rectified sequence, when given),
+    ``[p > 0, p < 0]`` polarity masks, and the event mask ``counts > 0``
+    of the (remapped) counts."""
     if x is None:
-        x = derive_count_input(ev, res)
+        x = derive_count_input(ev, res, raw_xy=raw, remap_idx=ridx)
     x = x.float()
     if pol is None:
         p = ev[..., 3]
@@ -223,16 +228,19 @@ def make_eval_step(model, val, flow_scaling: float = 32.0,
         vstate, carry, flow_fine = step(vstate, carry, x, ev, pol, emask,
                                         n_active=k)
 
-    ``x``/``pol``/``emask`` may be ``None`` (derived from ``ev``). With
-    ``with_extras=True`` (and ``extras`` given) a 4th value
-    ``extras(vstate, aux)`` comes back: the window-boundary quantities.
+    ``x``/``pol``/``emask`` may be ``None`` (derived from ``ev``, and for a
+    rectified sequence from its raw coordinates ``raw [B, N, 2]`` and its
+    rectification index ``ridx``). With ``with_extras=True`` (and
+    ``extras`` given) a 4th value ``extras(vstate, aux)`` comes back: the
+    window-boundary quantities.
     """
     net = _cast_model(model, inference_dtype)
 
     @torch.inference_mode()
     def step(vstate, carry, x, ev, pol, emask, n_active, aux=None,
-             with_extras=False):
-        x, pol, emask = _derive_inputs(val.cfg.res, ev, x, pol, emask)
+             with_extras=False, raw=None, ridx=None):
+        x, pol, emask = _derive_inputs(val.cfg.res, ev, x, pol, emask, raw,
+                                       ridx)
         c, xin = _cast(carry, x, inference_dtype)
         flows, new_carry = net(xin, c)
         flow_fine = flows[-1].float() * flow_scaling
@@ -255,17 +263,21 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
 
     with pass-stacked ``xs [P,B,H,W,C]``, ``evs [P,B,N,4]``,
     ``pols [P,B,N,2]``, ``emasks [P,B,H,W,1]`` (any but ``evs`` may be
-    ``None``). ``reset_first`` resets ``vstate`` before the first pass;
-    ``extras(vstate, aux)`` adds a 4th return value.
+    ``None``; a rectified window derives from ``raw [P,B,N,2]`` and
+    ``ridx``, see :func:`make_eval_step`). ``reset_first`` resets
+    ``vstate`` before the first pass; ``extras(vstate, aux)`` adds a 4th
+    return value.
     """
     net = _cast_model(model, inference_dtype)
     passes = val.cfg.passes
 
     @torch.inference_mode()
-    def window(vstate, carry, xs, evs, pols, emasks, aux=None):
+    def window(vstate, carry, xs, evs, pols, emasks, aux=None, raw=None,
+               ridx=None):
         if reset_first:
             vstate = val.reset(vstate)
-        xs, pols, emasks = _derive_inputs(val.cfg.res, evs, xs, pols, emasks)
+        xs, pols, emasks = _derive_inputs(val.cfg.res, evs, xs, pols, emasks,
+                                          raw, ridx)
         flow_fine = None
         for k in range(passes):
             c, x = _cast(carry, xs[k], inference_dtype)

@@ -82,7 +82,7 @@ def test_splat_integer_and_boundary_semantics():
     [-1, 0) keeps its in-frame tap; a coordinate past the frame drops."""
     loc = torch.tensor([[[2.0, 3.0], [-0.25, 1.0], [4.0, 4.25], [5.0, 0.0]]])
     vals = torch.ones(1, 4, 1)
-    out = tops.splat_bilinear(loc, vals, (5, 5))[0, ..., 0]
+    out = tops.cuda_warp.splat_bilinear(loc, vals, (5, 5))[0, ..., 0]
     expect = torch.zeros(5, 5)
     expect[2, 3] = 1.0
     expect[0, 1] = 0.75
@@ -153,7 +153,7 @@ def test_cpu_calls_leave_launch_counters_at_zero(rng):
     tops.gather_fused(torch.rand(2, 8, 10, 3), torch.from_numpy(loc),
                       torch.from_numpy(vals))
     assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
-                             "gather_fused": 0}
+                             "gather_fused": 0, "row_gather": 0}
 
 
 def test_wrappers_never_fall_back():
@@ -161,13 +161,14 @@ def test_wrappers_never_fall_back():
     never quietly handed to the plain version."""
     loc = torch.zeros(1, 4, 2, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        tops.splat_bilinear(loc, torch.zeros(1, 4, 2, device="meta"),
-                            (3, 3))
+        tops.cuda_warp.splat_bilinear(
+            loc, torch.zeros(1, 4, 2, device="meta"), (3, 3))
     with pytest.raises(ValueError, match="no kernel"):
         tops.gather_bilinear(torch.zeros(1, 3, 3, 2, device="meta"), loc)
     with pytest.raises(TypeError):
-        tops.splat_bilinear(torch.zeros(1, 4, 2, dtype=torch.float64),
-                            torch.zeros(1, 4, 1), (3, 3))
+        tops.cuda_warp.splat_bilinear(
+            torch.zeros(1, 4, 2, dtype=torch.float64), torch.zeros(1, 4, 1),
+            (3, 3))
     with pytest.raises(ValueError, match="contiguous"):
         tops.gather_bilinear(torch.zeros(1, 3, 3, 4)[..., :2],
                              torch.zeros(1, 4, 2))
@@ -178,7 +179,7 @@ def test_wrappers_never_fall_back():
         tops.gather_fused(torch.zeros(1, 3, 3, 2), torch.zeros(1, 4, 2),
                           torch.zeros(1, 4, 3))
     assert tops.LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
-                             "gather_fused": 0}
+                             "gather_fused": 0, "row_gather": 0}
 
 
 def test_set_tf32_sets_both_flags():
@@ -334,3 +335,152 @@ def test_backward_takes_strided_cotangents(rng):
     flow = tops.get_event_flow(maps, tl)
     (flow[..., :1] * 3.0).sum().backward()
     assert torch.isfinite(tl.grad).all() and torch.isfinite(maps.grad).all()
+
+
+# ------------------------------------------- row gather and the warp module
+
+
+@pytest.mark.parametrize("res", [(8, 10), (140, 200), (200, 220)])
+def test_gather_pixels_matches_jax(rng, res):
+    """All three JAX formulations (one-hot matmul, take_along_axis, the
+    128-lane row trick) against one row gather: exact; a [B, T, W] table
+    gathers whole rows in one call."""
+    t = res[0] * res[1]
+    table = rng.normal(size=(2, t)).astype(np.float32)
+    idx = rng.integers(0, t, (2, 300)).astype(np.int32)
+    ref = np.asarray(jwarp.gather_pixels(jnp.asarray(table),
+                                         jnp.asarray(idx)))
+    out = tops.gather_pixels(torch.from_numpy(table), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    rows = rng.normal(size=(2, t, 2)).astype(np.float32)
+    out = tops.gather_pixels(torch.from_numpy(rows), torch.from_numpy(idx))
+    assert out.shape == (2, 300, 2)
+    np.testing.assert_array_equal(
+        out.numpy(), np.take_along_axis(rows, idx[..., None], 1))
+
+
+def _deblur_inputs(rng, res, n=120, fractional=False):
+    ev = np.zeros((2, n, 4), np.float32)
+    ev[..., 0] = rng.uniform(0, 1, (2, n))
+    ev[..., 1] = rng.integers(-1, res[0] + 1, (2, n))  # some out of frame
+    ev[..., 2] = rng.integers(-1, res[1] + 1, (2, n))
+    if fractional:  # rectified coordinates
+        ev[..., 1:3] += rng.uniform(-0.45, 0.45, (2, n, 2))
+        # y * W + x of a fractional y in (H - 1, H) indexes past the flow
+        # map: the JAX formulations differ there (the one-hot form reads
+        # zero), the port clamps; keep to the range where all agree
+        y = ev[..., 1]
+        ev[..., 1] = np.where((y > res[0] - 1) & (y < res[0]), res[0] - 1, y)
+    ev[..., 3] = rng.choice([-1.0, 1.0], (2, n))
+    ev[:, -n // 8:] = 0.0  # padding rows
+    pol = np.stack([ev[..., 3] > 0, ev[..., 3] < 0], -1).astype(np.float32)
+    flow = rng.normal(size=(2, res[0], res[1], 2)).astype(np.float32) * 2
+    return flow, ev, pol
+
+
+@pytest.mark.parametrize("res", [(9, 13), (140, 200)])
+@pytest.mark.parametrize("rounding", [(True, True), (False, False)])
+@pytest.mark.parametrize("fractional", [False, True])
+def test_compute_pol_iwe_and_deblur_match_jax(rng, res, rounding,
+                                              fractional):
+    """``(round_idx, round_flow)`` at the default ``(True, True)`` and at
+    ``(False, False)`` as the eval CLI draws its ``iwe``, on integer and
+    rectified (fractional) event coordinates."""
+    round_idx, round_flow = rounding
+    flow, ev, pol = _deblur_inputs(rng, res, fractional=fractional)
+    kw = dict(round_idx=round_idx, round_flow=round_flow)
+    t = torch.from_numpy
+    ref = np.asarray(jwarp.compute_pol_iwe(jnp.asarray(flow),
+                                           jnp.asarray(ev), res,
+                                           jnp.asarray(pol), **kw))
+    out = tops.compute_pol_iwe(t(flow), t(ev), res, t(pol), **kw)
+    assert out.shape == ref.shape == (2,) + res + (2,)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    for mask in (None, pol[..., 1:2]):
+        ref = np.asarray(jwarp.deblur_events(
+            jnp.asarray(flow), jnp.asarray(ev), res,
+            polarity_mask=None if mask is None else jnp.asarray(mask), **kw))
+        out = tops.deblur_events(t(flow), t(ev), res,
+                                 polarity_mask=None if mask is None
+                                 else t(mask), **kw)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+def test_compute_pol_iwe_launch_routes(rng):
+    """On the CPU nothing launches; the nearest flow lookup is one row
+    gather of both flow channels, the bilinear one a bilinear gather."""
+    flow, ev, pol = _deblur_inputs(rng, (9, 13))
+    calls = []
+    real_row = tops.cuda_warp.row_gather
+    real_bil = tops.GatherBilinearFn.forward
+
+    def spy_row(table, idx):
+        calls.append(("row", table.shape[1]))
+        return real_row(table, idx)
+
+    def spy_bil(ctx, maps, loc):
+        calls.append(("bilinear", maps.shape[-1]))
+        return real_bil(ctx, maps, loc)
+
+    import taming_event_flow_tpu_torch.ops.warp as twarp
+    t = torch.from_numpy
+    tops.reset_launches()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(twarp, "row_gather", spy_row)
+        mp.setattr(tops.GatherBilinearFn, "forward", staticmethod(spy_bil))
+        tops.compute_pol_iwe(t(flow), t(ev), (9, 13), t(pol))
+        assert calls == [("row", 2)]
+        tops.compute_pol_iwe(t(flow), t(ev), (9, 13), t(pol),
+                             round_idx=False, round_flow=False)
+        assert calls == [("row", 2), ("bilinear", 2)]
+    assert all(v == 0 for v in tops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("round_idx", [False, True])
+def test_get_interpolation_and_interpolate_match_jax(rng, round_idx):
+    res = (11, 17)
+    loc, _ = make_events(rng, res, 60, c=1)
+    mask = (rng.uniform(size=(2, 60 if round_idx else 240, 1)) > 0.3
+            ).astype(np.float32)
+    ref_idx, ref_w = jwarp.get_interpolation(jnp.asarray(loc), res,
+                                             round_idx=round_idx)
+    idx, w = tops.get_interpolation(torch.from_numpy(loc), res,
+                                    round_idx=round_idx)
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_allclose(w.numpy(), np.asarray(ref_w), **TOL)
+    ref = jwarp.interpolate(ref_idx, ref_w, res,
+                            polarity_mask=jnp.asarray(mask))
+    out = tops.interpolate(idx, w, res, polarity_mask=torch.from_numpy(mask))
+    assert out.shape == (2,) + res + (1,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the bilinear splat of the same events is the 4-tap interpolation
+    if not round_idx:
+        ones = torch.ones(2, 60, 1)
+        np.testing.assert_allclose(
+            tops.interpolate(idx, w, res).numpy(),
+            tops.splat_values(torch.from_numpy(loc), ones, res).numpy(),
+            **TOL)
+
+
+def test_splat_channels_and_bilinear_sample_match_jax(rng):
+    res = (140, 200)  # > 16384 px: the JAX scatter path
+    hw = res[0] * res[1]
+    idx = rng.integers(-3, hw + 3, (2, 500)).astype(np.int32)  # some drop
+    w = rng.normal(size=(2, 500, 3)).astype(np.float32)
+    ref = np.asarray(jwarp.splat_channels(jnp.asarray(idx), jnp.asarray(w),
+                                          res))
+    out = tops.splat_channels(torch.from_numpy(idx), torch.from_numpy(w), res)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    ref1 = np.asarray(jwarp.splat_bilinear(jnp.asarray(idx),
+                                           jnp.asarray(w[..., :1]), res))
+    out1 = tops.splat_bilinear(torch.from_numpy(idx),
+                               torch.from_numpy(w[..., :1]), res)
+    np.testing.assert_allclose(out1.numpy(), ref1, **TOL)
+    loc, _ = make_events(rng, res, 80, c=1)
+    img = rng.normal(size=(2,) + res).astype(np.float32)
+    np.testing.assert_allclose(
+        tops.bilinear_sample(torch.from_numpy(img),
+                             torch.from_numpy(loc)).numpy(),
+        np.asarray(jwarp.bilinear_sample(jnp.asarray(img),
+                                         jnp.asarray(loc))), **TOL)

@@ -136,7 +136,7 @@ def test_slice_matches_jax_pipeline(models, runtime, jump_at):
     reset_launches()
     ours = _drive(EvalPipeline(cfg, tm, device="cpu"), windows, jump_at)
     assert LAUNCHES == {"splat_bilinear": 0, "gather_bilinear": 0,
-                        "gather_fused": 0}
+                        "gather_fused": 0, "row_gather": 0}
     _assert_metrics_close(ours, ref)
 
 
