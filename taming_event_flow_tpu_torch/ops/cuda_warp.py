@@ -184,26 +184,55 @@ def _check(name, t, ndim, last=None):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(fn_name, counter, args):
-    from . import kernel_build
+# the kernel library (ctypes; its C functions resolved and declared when it
+# loads), kept at first CUDA launch so that later launches skip the build
+# module's lock
+_lib = None
 
-    lib = kernel_build.load().lib
-    rc = getattr(lib, fn_name)(*args)
+# the current stream's handle of a device index: the private getter that
+# PyTorch's own generated kernels call (checked with torch 2.11 for CUDA
+# 12.8), since torch.cuda.current_stream(index) builds a Stream object on
+# every call; a build without it (CPU-only, or a release that renames it)
+# gets the public call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from . import kernel_build
+
+        _lib = kernel_build.load().lib
+    return _lib
+
+
+def _launch(kernel, counter, dev, *args):
+    """Call ``kernel`` (a C entry point of the library) with ``args`` and
+    the current stream of ``dev``, entering ``dev`` only when it is not the
+    current device; raise with CUDA's message if the launch failed."""
+    stream = _raw_stream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        rc = kernel(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = kernel(*args, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"{fn_name} launch failed: {lib.tef_error_string(rc).decode()}")
+        raise RuntimeError(f"{kernel.__name__} launch failed: "
+                           f"{_library().tef_error_string(rc).decode()}")
     LAUNCHES[counter] += 1
 
 
 def _on_card(*tensors) -> bool:
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("all inputs must be on one device")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError("all inputs must be on one device")
+    if dev.type == "cuda":
+        return True
+    if dev.type != "cpu":
         raise ValueError(f"no kernel for device {dev}")
-    return True
+    return False
 
 
 def _channels(kernel, c):
@@ -224,14 +253,12 @@ def splat_bilinear(loc, values, res: Tuple[int, int]):
         return splat_bilinear_plain(loc, values, res)
     h, w = res
     _channels("splat", c)
-    out = torch.zeros(b, h, w, c, dtype=torch.float32, device=values.device)
+    out = torch.empty(b, h, w, c, dtype=torch.float32, device=values.device)
     if b * m == 0:
-        return out
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("tef_splat_bilinear", "splat_bilinear",
-                (loc.data_ptr(), values.data_ptr(), out.data_ptr(),
-                 b, m, c, h, w, stream))
+        return out.zero_()
+    # the entry point zeroes out before the kernel adds into it
+    _launch(_library().tef_splat_bilinear, "splat_bilinear", values.device,
+            loc.data_ptr(), values.data_ptr(), out.data_ptr(), b, m, c, h, w)
     return out
 
 
@@ -251,11 +278,8 @@ def gather_bilinear(maps, loc):
     out = torch.empty(b, m, c, dtype=torch.float32, device=maps.device)
     if b * m == 0:
         return out
-    with torch.cuda.device(maps.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("tef_gather_bilinear", "gather_bilinear",
-                (maps.data_ptr(), loc.data_ptr(), out.data_ptr(),
-                 b, m, c, h, w, stream))
+    _launch(_library().tef_gather_bilinear, "gather_bilinear", maps.device,
+            maps.data_ptr(), loc.data_ptr(), out.data_ptr(), b, m, c, h, w)
     return out
 
 
@@ -280,12 +304,10 @@ def gather_fused(maps, loc, values, with_gv: bool = True):
     dx = torch.empty(b, m, dtype=torch.float32, device=dev)
     if b * m == 0:
         return gv, dy, dx
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("tef_gather_fused", "gather_fused",
-                (maps.data_ptr(), loc.data_ptr(), values.data_ptr(),
-                 None if gv is None else gv.data_ptr(), dy.data_ptr(),
-                 dx.data_ptr(), b, m, c, h, w, stream))
+    _launch(_library().tef_gather_fused, "gather_fused", dev, maps.data_ptr(),
+            loc.data_ptr(), values.data_ptr(),
+            None if gv is None else gv.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), b, m, c, h, w)
     return gv, dy, dx
 
 
@@ -311,11 +333,8 @@ def row_gather(table, idx):
     out = torch.empty(m, w, dtype=torch.float32, device=table.device)
     if m * w == 0:
         return out
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("tef_row_gather", "row_gather",
-                (table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, r, w,
-                 stream))
+    _launch(_library().tef_row_gather, "row_gather", table.device,
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, r, w)
     return out
 
 

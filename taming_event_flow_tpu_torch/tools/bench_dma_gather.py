@@ -72,23 +72,33 @@ def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, kernel=None) -> float:
     """Device time per call of ``fn``: the kernels' own time in a
     ``torch.profiler`` trace of ``reps`` calls, without the host's launch
-    cost that back-to-back event timing of a short kernel includes."""
+    cost that back-to-back event timing of a short kernel includes; with
+    ``kernel``, only the kernels whose name holds it (the splat wrapper's
+    zero fill is then left out), else everything the call runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(a.self_device_time_total for a in prof.key_averages()
-             if a.device_type == DeviceType.CUDA and not a.is_user_annotation)
-    return us / reps / 1e3
+    # the profiler now and then returns a trace without device rows: read
+    # it again before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(a.self_device_time_total for a in prof.key_averages()
+                 if a.device_type == DeviceType.CUDA
+                 and not a.is_user_annotation
+                 and (kernel is None or kernel in a.key))
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"the profiler saw no device time for "
+                       f"{kernel or 'a call'} in three traces")
 
 
 def bound_ms(m: int, width: int) -> float:

@@ -484,3 +484,120 @@ def test_splat_channels_and_bilinear_sample_match_jax(rng):
                              torch.from_numpy(loc)).numpy(),
         np.asarray(jwarp.bilinear_sample(jnp.asarray(img),
                                          jnp.asarray(loc))), **TOL)
+
+
+# ------------------------------------------ what the redesigned kernels rely on
+
+
+def _with_zero_rows(rng, loc, vals, res, n_zero):
+    """``n_zero`` zero-valued rows inserted among the rows of ``loc`` and
+    ``vals`` (the real rows keep their order): half at (0, 0), as padding
+    and purged rows sit, half out of frame."""
+    b, m, c = vals.shape
+    at = np.sort(rng.integers(0, m + 1, n_zero))
+    pad = np.zeros((n_zero, 2), np.float32)
+    outside = [[-3.5, 2.0], [res[0] + 2.0, 1.5], [4.0, -1.25],
+               [1.0, res[1] + 0.5]]
+    pad[n_zero // 2:] = np.resize(outside, (n_zero - n_zero // 2, 2))
+    return (np.insert(loc, at, pad, axis=1),
+            np.insert(vals, at, np.zeros((n_zero, c), np.float32), axis=1))
+
+
+@pytest.mark.parametrize("round_idx", [False, True])
+@pytest.mark.parametrize("c", [2, 4])
+def test_splat_zero_rows_add_nothing(rng, backends, round_idx, c):
+    """Zero-valued rows at (0, 0) and out of frame leave the splat as it
+    is: bitwise in the port's plain version, and within the kernel
+    tolerance of the JAX Pallas splat (interpret mode) with or without
+    them. The CUDA splat issues no atomics for such rows on this ground."""
+    res = (12, 15)
+    loc, _ = make_events(rng, res, 96, c=c)
+    vals = rng.normal(size=(2, 96, c)).astype(np.float32)
+    loc_z, vals_z = _with_zero_rows(rng, loc, vals, res, 40)
+    t = torch.from_numpy
+    out = tops.splat_values(t(loc), t(vals), res, round_idx=round_idx)
+    out_z = tops.splat_values(t(loc_z), t(vals_z), res, round_idx=round_idx)
+    assert torch.equal(out, out_z)
+    jops.set_warp_backend("pallas")
+    for lc, vl in ((loc, vals), (loc_z, vals_z)):
+        ref = np.asarray(jops.splat_values(jnp.asarray(lc), jnp.asarray(vl),
+                                           res, round_idx=round_idx))
+        np.testing.assert_allclose(out_z.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("c", [2, 4])
+def test_gather_at_integer_coordinates_matches_jax(rng, backends, backend,
+                                                   c):
+    """Every integer coordinate from -1 to H (y) and W (x): the last row
+    and column read their pixel, the borders -1, H and W read nothing. The
+    CUDA gather reads one tap per axis there; the value is the pixel,
+    exactly."""
+    res = (9, 13)
+    ys, xs = np.meshgrid(np.arange(-1, res[0] + 1), np.arange(-1, res[1] + 1),
+                         indexing="ij")
+    grid = np.stack([ys, xs], -1).reshape(1, -1, 2).astype(np.float32)
+    loc = np.concatenate([grid, grid[:, ::-1]])  # lane 1 in reverse order
+    maps = rng.normal(size=(2,) + res + (c,)).astype(np.float32)
+    jops.set_warp_backend(backend)
+    ref = np.asarray(jops.gather_values(jnp.asarray(maps), jnp.asarray(loc)))
+    out = tops.gather_values(torch.from_numpy(maps), torch.from_numpy(loc))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    y, x = loc[..., 0].astype(int), loc[..., 1].astype(int)
+    inside = (y >= 0) & (y < res[0]) & (x >= 0) & (x < res[1])
+    lane = np.arange(2)[:, None]
+    pixel = maps[lane, y.clip(0, res[0] - 1), x.clip(0, res[1] - 1)]
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.where(inside[..., None], pixel, 0.0))
+
+
+@pytest.mark.parametrize("kernel", ["splat", "gather", "fused",
+                                    "row_gather"])
+def test_cpu_calls_never_load_the_kernel_library(rng, monkeypatch, kernel):
+    """A wrapper given CPU tensors serves them from its plain version
+    without building or loading the CUDA library."""
+    from taming_event_flow_tpu_torch.ops import kernel_build
+
+    def refuse():
+        raise AssertionError("a CPU call reached the kernel library")
+
+    monkeypatch.setattr(kernel_build, "load", refuse)
+    monkeypatch.setattr(tops.cuda_warp, "_lib", None)
+    cw = tops.cuda_warp
+    loc, vals = (torch.from_numpy(a) for a in make_events(rng, (8, 10), 32))
+    maps = torch.from_numpy(rng.normal(size=(2, 8, 10, 3))
+                            .astype(np.float32))
+    if kernel == "splat":
+        got, ref = (cw.splat_bilinear(loc, vals, (8, 10)),
+                    cw.splat_bilinear_plain(loc, vals, (8, 10)))
+    elif kernel == "gather":
+        got, ref = cw.gather_bilinear(maps, loc), cw.gather_bilinear_plain(
+            maps, loc)
+    elif kernel == "fused":
+        got = torch.cat(cw.gather_fused(maps, loc, vals)[1:])
+        ref = torch.cat(cw.gather_fused_plain(maps, loc, vals)[1:])
+    else:
+        idx = torch.from_numpy(rng.integers(-2, 162, 50).astype(np.int32))
+        table = maps.reshape(160, 3)
+        got, ref = cw.row_gather(table, idx), cw.row_gather_plain(table, idx)
+    assert torch.equal(got, ref)
+    assert cw._lib is None
+
+
+def test_kernel_library_loads_once(monkeypatch):
+    """The wrappers ask the build module for the library once per process,
+    not under its lock on every launch."""
+    from types import SimpleNamespace
+
+    from taming_event_flow_tpu_torch.ops import kernel_build
+
+    loads = []
+
+    def fake_load():
+        loads.append(1)
+        return SimpleNamespace(lib=object())
+
+    monkeypatch.setattr(kernel_build, "load", fake_load)
+    monkeypatch.setattr(tops.cuda_warp, "_lib", None)
+    first = tops.cuda_warp._library()
+    assert tops.cuda_warp._library() is first and loads == [1]
