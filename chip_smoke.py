@@ -12,11 +12,16 @@ one NVIDIA card.
    the call runs there) and on the host (issuing the call), the plain
    version's, a library yardstick's and its memory bound:
    the splat and the gather at the DSEC eval path's shapes, the fused
-   dual-stencil gather at the training path's (the splat backward, C=4,
-   and the gather backward, C=2). The splat also on a clustered input
-   (events on a few hundred edges, a generator of its own), each input
-   beside the splat of its real rows alone (no zero rows at (0, 0)); the
-   splat and the gather at C = 1..4 with aligned and misaligned pointers.
+   dual-stencil gather at the training path's (the splat backward, C=4, at
+   10 and 5 windows, and the gather backward, C=2, at 10 and 2 windows;
+   both at 10 windows with a training step's shares of zero-valued rows),
+   bitwise against its plain version there and at C = 1..4 with
+   misaligned pointers, and the autograd Functions' location gradients
+   running the fused kernel alone (no stack after it). The splat also on a
+   clustered input (events on a few hundred edges, a generator of its
+   own), each input beside the splat of its real rows alone (no zero rows
+   at (0, 0)); the splat and the gather at C = 1..4 with aligned and
+   misaligned pointers.
 3. Eval phase: the DSEC eval protocol (``configs/eval_dsec.yml``: 480x640,
    P=10, 65,536-event bucket, FWL/RSAT/AEE, Iterative warping, bf16
    forward, flow_bw store) through ``EvalPipeline`` with a full-width
@@ -48,7 +53,10 @@ one NVIDIA card.
    ``make_train_step`` for one warm-up and five timed steps; losses must be
    finite and change, every parameter must get a finite non-zero gradient,
    and the launch counters must show 124 splats, 80 gathers and 116 fused
-   gathers per step. Then float32 on the card
+   gathers per step. One more step counts the fused gathers' zero-valued
+   rows and their bytes bound; the profiled step (``--profile``) prints the
+   fused gathers' and the stack/cat kernels' launches and device time.
+   Then float32 on the card
    against the CPU at B=1 (:func:`card_vs_cpu`): the step's loss, the loss's
    flow gradient on identical flows and the model's parameter gradients
    for one flow cotangent must agree.
@@ -504,15 +512,145 @@ def n_dual_taps(loc, h, w):
     return int((ny * nx).sum()), int(ny.sum())
 
 
-def fused_phase(rng):
+def bits(t):
+    """The float32 tensor's bit patterns (int32): equal only where every
+    bit is, the sign of a zero included."""
+    import torch
+
+    return t.contiguous().view(torch.int32)
+
+
+def check_fused_bitwise(tag, maps, loc, vals, with_gv):
+    """The fused kernel against its plain version, every bit of gv (where
+    asked) and d_loc (dy, dx); returns the max abs error."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    got = cuda_warp.gather_fused_dloc(maps, loc, vals, with_gv=with_gv)
+    gv, dy, dx = cuda_warp.gather_fused_plain(maps, loc, vals,
+                                              with_gv=with_gv)
+    ref = (gv, torch.stack([dy, dx], -1))
+    torch.cuda.synchronize()
+    pairs = [(a, b) for a, b in zip(got, ref) if b is not None]
+    check(got[0] is None if not with_gv else got[0] is not None,
+          f"fused gather ({tag}): gv returned where not asked, or not")
+    e = max(float((a - b).abs().max()) for a, b in pairs)
+    check(all(torch.equal(bits(a), bits(b)) for a, b in pairs),
+          f"fused gather is not bitwise its plain version ({tag}, with_gv "
+          f"{with_gv}): max abs err {e}")
+    return e
+
+
+def check_fused_widths(rng):
+    """The fused gather at C = 1..4 on small inputs with pointers aligned
+    (the vector instances for C = 2 and 4) and one float off (the scalar
+    instances), integer coordinates on y, on x and on both, zero-valued
+    rows at (0, 0), with and without gather values: bitwise."""
+    import torch
+
+    h, w, m = 37, 53, 5000
+    for c in (1, 2, 3, 4):
+        for off in (0, 1):
+            def arr(shape, low, high):
+                n = int(np.prod(shape))
+                buf = torch.from_numpy(rng.uniform(low, high, n + off)
+                                       .astype(np.float32)).to(DEVICE)
+                return buf[off:].view(shape)
+
+            loc = arr((2, m, 2), 0.0, 1.0)
+            loc.mul_(torch.tensor([h + 3.0, w + 3.0], device=DEVICE)).sub_(2)
+            loc[:, : m // 4] = torch.round(loc[:, : m // 4])
+            loc[:, m // 4: m // 3, 0] = torch.round(loc[:, m // 4: m // 3, 0])
+            loc[:, m // 3: m // 2, 1] = torch.round(loc[:, m // 3: m // 2, 1])
+            vals = arr((2, m, c), -1.0, 1.0)
+            vals[:, -m // 8:] = 0.0
+            loc[:, -m // 8:] = 0.0
+            maps = arr((2, h, w, c), -1.0, 1.0)
+            for with_gv in (True, False):
+                check_fused_bitwise(f"C={c}, offset {4 * off} B", maps, loc,
+                                    vals, with_gv)
+    print("fused gather at C = 1..4, aligned and 4 bytes off, integer "
+          "coordinates and zero-valued rows, with and without gather "
+          "values: bitwise its plain version")
+
+
+def check_backward_kernels(maps4, maps2, loc, vals4, cot2):
+    """The two Functions' location gradients at the training shapes run
+    the fused gather and nothing else on the device: no stack after it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    lc = loc.clone().requires_grad_()
+    splat = cuda_warp.SplatBilinearFn.apply(lc, vals4, TRAIN_RES)
+    gather = cuda_warp.GatherBilinearFn.apply(maps2, lc)
+    for tag, out, g in (("SplatBilinearFn", splat, maps4),
+                        ("GatherBilinearFn", gather, cot2)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, lc, g, retain_graph=True)
+            torch.cuda.synchronize()
+        names = [a.key for a in prof.key_averages()
+                 if a.device_type == DeviceType.CUDA
+                 and not a.is_user_annotation and a.self_device_time_total]
+        check(names and all("gather_fused_kernel" in n for n in names),
+              f"{tag}.backward runs more than the fused gather: {names}")
+        print(f"{tag}.backward (location gradient) on the device: {names}")
+
+
+def fused_case(tag, maps, loc, vals, plain=False):
+    """Hold the fused gather bitwise to its plain version with and
+    without gather values, then time it as the training path calls it
+    (``gather_fused_dloc`` without gather values): event, device (all the
+    call runs there, and the kernel alone) and host time beside its
+    bound."""
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    b, h, w, c = maps.shape
+    n = loc.shape[0] * loc.shape[1]
+    e = max(check_fused_bitwise(tag, maps, loc, vals, True),
+            check_fused_bitwise(tag, maps, loc, vals, False))
+    # without gather values a row whose values are all zero reads no taps
+    work = ~(vals == 0).all(-1)
+    taps, ytaps = n_dual_taps(loc[work], h, w)
+    nbytes = (loc.numel() + vals.numel() + maps.numel() + 2 * n) * 4
+    nops = taps * c * 4 + ytaps * c * 6 + n * c * 4
+    b_ms, b_by = bound_ms(nbytes, nops)
+    call = lambda: cuda_warp.gather_fused_dloc(  # noqa: E731
+        maps, loc, vals, with_gv=False)
+    case = {"max_abs_err": e, "B": b, "M": loc.shape[1], "C": c,
+            "zero_rows": int(n - int(work.sum())),
+            "ms": time_ms(call), "device_ms": device_ms(call),
+            "kernel_only_device_ms": device_ms(call, "gather_fused_kernel"),
+            "host_us": host_us(call), "bound_ms": b_ms, "bound_by": b_by}
+    if plain:
+        case["plain_ms"] = time_ms(
+            lambda: cuda_warp.gather_fused_dloc_plain(maps, loc, vals,
+                                                      with_gv=False),
+            reps=10)
+    return case
+
+
+def fused_phase(rng, seed):
     """The fused dual-stencil gather at the training path's shapes: the
     splat backward (the C=4 IWE cotangent image, the splat's values) and
     the gather backward (the C=2 flow map, the gather's cotangent), both
-    without gather values, as the path calls them."""
+    without gather values, as the path calls them, at their largest launch
+    (10 windows) beside the library yardstick; then at 5 (C=4) and 2 (C=2,
+    the step's smallest launch) windows and at 10 windows with the step's
+    shares of zero-valued rows, some at (0, 0) (``tools/
+    bench_fused_shapes``' inputs, a generator of their own); every case
+    bitwise its plain version, and at C = 1..4 with misaligned pointers;
+    the two Functions' location gradients run nothing but the kernel."""
     import torch
     import torch.nn.functional as F
 
     from taming_event_flow_tpu_torch.ops import cuda_warp
+    from taming_event_flow_tpu_torch.tools import bench_fused_shapes as shapes
 
     dev = torch.device(DEVICE)
     h, w = TRAIN_RES
@@ -526,21 +664,16 @@ def fused_phase(rng):
     # derivative stencil jumps, so the agreement is read on the others
     frac = loc[:, q:] - torch.floor(loc[:, q:])
     clear = ((frac > 1e-3) & (frac < 1 - 1e-3)).all(-1)
-    taps, ytaps = n_dual_taps(loc, h, w)
-    cases, err = {}, 0.0
+    cases, err, inputs = {}, 0.0, {}
     for tag, c in (("splat_backward", 4), ("gather_backward", 2)):
         maps = torch.from_numpy(rng.normal(size=(TRAIN_B, h, w, c))
                                 .astype(np.float32)).to(dev)
         vals = torch.from_numpy(rng.normal(size=(TRAIN_B, FUSED_M, c))
                                 .astype(np.float32)).to(dev)
-        got = cuda_warp.gather_fused(maps, loc, vals)
+        inputs[c] = (maps, vals)
         ref = cuda_warp.gather_fused_plain(maps, loc, vals)
-        torch.cuda.synchronize()
-        e = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        check(all(torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-                  for a, b in zip(got, ref)),
-              f"fused gather disagrees with its plain version ({tag}): {e}")
-        err = max(err, e)
+        cases[tag] = fused_case(tag, maps, loc, vals, plain=True)
+        err = max(err, cases[tag].pop("max_abs_err"))
 
         maps_nchw = maps.permute(0, 3, 1, 2).contiguous()
         g_out = vals[:, q:].permute(0, 2, 1)[:, :, None].contiguous()
@@ -562,27 +695,29 @@ def fused_phase(rng):
                   .abs().max()),
             float((d_grid[:, 0, :, 1] * (2 / (h - 1)) - ref[1][:, q:])[clear]
                   .abs().max()))
-        nbytes = (loc.numel() + vals.numel() + maps.numel() + 2 * n) * 4
-        nops = taps * c * 4 + ytaps * c * 6 + n * c * 4
-        b_ms, b_by = bound_ms(nbytes, nops)
-        call = lambda: cuda_warp.gather_fused(  # noqa: E731
-            maps, loc, vals, with_gv=False)
-        cases[tag] = {
-            "ms": time_ms(call),
-            "device_ms": device_ms(call),
-            "host_us": host_us(call),
-            "plain_ms": time_ms(lambda: cuda_warp.gather_fused_plain(
-                maps, loc, vals, with_gv=False), reps=10),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib),
-            "library_device_ms": device_ms(lib),
-            "library_host_us": host_us(lib),
-        }
+        cases[tag].update(library_ms=time_ms(lib),
+                          library_device_ms=device_ms(lib),
+                          library_host_us=host_us(lib))
         print(f"gather_fused {tag} (B={TRAIN_B}, M={FUSED_M}, C={c}): "
-              f"max_abs_err {e:.3e}; {cases[tag]}; grid_sample + "
+              f"bitwise; {cases[tag]}; grid_sample + "
               f"grid_sampler_2d_backward on the {n - TRAIN_B * q} "
               f"non-integer points ({int(clear.sum())} more than 1e-3 px "
               f"from an integer: differ by {lib_err:.3e})")
+
+    check_backward_kernels(inputs[4][0], inputs[2][0], loc, inputs[4][1],
+                           inputs[2][1])
+    check_fused_widths(np.random.default_rng([seed, 3]))
+    more = {}
+    for i, (tag, (c, m, zero)) in enumerate(shapes.CASES.items()):
+        if (m == FUSED_M and not zero[0]) or zero[0] == 1.0:
+            continue  # the two cases above; the stream alone is the study's
+        maps, lc, vals = shapes.fused_inputs([seed, 4, i], c, m, zero)
+        more[tag] = fused_case(tag, maps, lc, vals)
+        err = max(err, more[tag].pop("max_abs_err"))
+        print(f"gather_fused {tag} (B={TRAIN_B}, M={m}, C={c}, "
+              f"{more[tag]['zero_rows']} zero-valued rows, "
+              f"{int((lc == 0).all(-1).sum())} rows at (0, 0)): "
+              f"bitwise; {more[tag]}")
 
     entry = {
         "name": "gather_fused",
@@ -592,6 +727,7 @@ def fused_phase(rng):
         "max_abs_err": err,
         **cases["splat_backward"],
         "gather_backward": cases["gather_backward"],
+        "shapes": more,
     }
     return {"gather_fused": entry}
 
@@ -954,10 +1090,11 @@ def rectified_phase(rng, model, n_windows, ms_plain, profile_dir):
     return launches, ms_derived, ms_host
 
 
-def profile_run(fn, out_dir, tag, trace=True):
+def profile_run(fn, out_dir, tag, trace=True, watch=()):
     """Kernel-time breakdown of one call of ``fn`` (torch.profiler): the
     table goes to ``<out_dir>/profile_<tag>.txt``, the ten kernels with the
-    most device time to stdout."""
+    most device time to stdout, and for each name in ``watch`` the
+    launches and device ms of the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -990,6 +1127,11 @@ def profile_run(fn, out_dir, tag, trace=True):
     for a in top:
         print(f"  {a.self_device_time_total / 1e3:9.3f} ms  {a.count:6d}x  "
               f"{a.key[:90]}")
+    for name in watch:
+        rows = [a for a in device_rows if name in a.key]
+        print(f"profile {tag}: kernels named *{name}*: "
+              f"{sum(a.count for a in rows)} launches, "
+              f"{sum(a.self_device_time_total for a in rows) / 1e3:.5f} ms")
 
 
 def profile_window(pipe, passes, out_dir):
@@ -1104,6 +1246,70 @@ def padding_cost(model, window):
               f"({n0 / TRAIN_B:.0f} per lane); splat (event ms, device ms) "
               f"{times['with']} with them, {times['without']} on the {keep} "
               f"per lane without")
+
+
+def fused_gather_census(step, state, window):
+    """One more training step with the two Functions' backward watched:
+    per width C, the fused gathers' launches and points, the share of rows
+    whose values are all zero (which read no taps) and of those at (0, 0),
+    and the bytes bound of them all (each launch's loc, values, map and
+    d_loc once). ``tools/bench_fused_shapes.ZERO_SHARE`` carries the share
+    to the kernel phases' zero-row inputs. Returns the new state."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    stats = {}
+
+    def record(maps, loc, vals):
+        zero = (vals == 0).all(-1)
+        s = stats.setdefault(vals.shape[-1], {"launches": 0, "points": 0,
+                                              "bytes": 0, "zero": [],
+                                              "at_origin": []})
+        s["launches"] += 1
+        s["points"] += zero.numel()
+        s["bytes"] += (loc.numel() + vals.numel() + maps.numel()
+                       + 2 * zero.numel()) * 4
+        s["zero"].append(zero.sum())
+        s["at_origin"].append((zero & (loc == 0).all(-1)).sum())
+
+    splat_bw = cuda_warp.SplatBilinearFn.backward
+    gather_bw = cuda_warp.GatherBilinearFn.backward
+
+    def splat_spy(ctx, g):
+        if ctx.needs_input_grad[0]:
+            loc, values = ctx.saved_tensors
+            record(g, loc, values)
+        return splat_bw(ctx, g)
+
+    def gather_spy(ctx, g):
+        if ctx.needs_input_grad[1]:
+            maps, loc = ctx.saved_tensors
+            record(maps, loc, g)
+        return gather_bw(ctx, g)
+
+    cuda_warp.SplatBilinearFn.backward = staticmethod(splat_spy)
+    cuda_warp.GatherBilinearFn.backward = staticmethod(gather_spy)
+    try:
+        state, _ = step(state, window)
+    finally:
+        cuda_warp.SplatBilinearFn.backward = staticmethod(splat_bw)
+        cuda_warp.GatherBilinearFn.backward = staticmethod(gather_bw)
+    launches = sum(s["launches"] for s in stats.values())
+    check(launches == TRAIN_LAUNCHES["gather_fused"],
+          f"census saw {launches} fused gathers in a step")
+    total = 0
+    for c, s in sorted(stats.items()):
+        zero = int(torch.stack(s["zero"]).sum())
+        origin = int(torch.stack(s["at_origin"]).sum())
+        total += s["bytes"]
+        print(f"fused gathers of a training step at C={c}: {s['launches']} "
+              f"launches, {s['points']} points, zero-valued rows "
+              f"{zero / s['points']:.6f} of them ({zero}; at (0, 0) "
+              f"{origin}); bytes bound {bound_ms(s['bytes'], 0)[0]:.5f} ms")
+    print(f"fused gathers of a training step: bytes bound "
+          f"{bound_ms(total, 0)[0]:.5f} ms ({total} B)")
+    return state
 
 
 def max_ratio(got, ref):
@@ -1264,9 +1470,12 @@ def train_phase(rng, profile_dir):
           f"memory {peak / 2**30:.3f} GiB ({peak} B; requested {asked} B)")
 
     padding_cost(model, windows[-1])
+    state = fused_gather_census(step, state, windows[-1])
     if profile_dir:
+        # the fused gathers, and the stack/cat kernels (none of them after
+        # a fused gather, check_backward_kernels shows)
         profile_run(lambda: step(state, windows[-1]), profile_dir, "train",
-                    trace=False)
+                    trace=False, watch=("gather_fused_kernel", "CatArray"))
 
     card_vs_cpu(rng)
     return launches, ms_step
@@ -1294,15 +1503,14 @@ def main(argv=None):
     set_tf32(False)
     lib = kernel_build.load()
     print(f"built {lib.path} in {lib.build_seconds:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for name, regs, spill in kernel_build.ptxas_report(lib.build_log):
+        print(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled")
 
     rng = np.random.default_rng(args.seed)
     # the clustered splat input draws from a stream of its own, so the
     # other phases see the same data as before it
     kernels = kernel_phase(rng, np.random.default_rng([args.seed, 2]))
-    kernels.update(fused_phase(rng))
+    kernels.update(fused_phase(rng, args.seed))
     # the row-gather and rectified phases draw from a stream of their own,
     # so the earlier phases see the same data as before them
     rng_rect = np.random.default_rng([args.seed, 1])
@@ -1334,6 +1542,10 @@ def main(argv=None):
                   f"{r['library_device_ms']:.5f} ms, host "
                   f"{r['library_host_us']:.3f} us; bound "
                   f"{r['bound_ms']:.5f} ms")
+    for tag, r in kernels["gather_fused"]["shapes"].items():
+        print(f"gather_fused {tag}: event {r['ms']:.5f} ms, device "
+              f"{r['device_ms']:.5f} ms, host {r['host_us']:.3f} us per "
+              f"call; bound {r['bound_ms']:.5f} ms")
     print(f"slice_ms_per_pass {ms_pass:.4f}")
     print(f"rectified_ms_per_pass {ms_rect:.4f} (derived on the card), "
           f"{ms_rect_host:.4f} (host-built input shipped)")

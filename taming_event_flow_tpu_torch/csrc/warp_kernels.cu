@@ -69,24 +69,57 @@
 // which is the whole backward of the splat (m = the cotangent image,
 // v = the splatted values; gv = d_values, (dy, dx) = d_loc) and the location
 // half of the gather's backward (m = the gathered maps, v = the cotangent;
-// gv unused, so the caller passes a null gv and the kernel skips it).
-// The TPU kernel builds dense [TH, E] triangle and derivative factor tiles
-// for the MXU because the TPU has no fast gather; on Hopper one thread per
-// (point, batch) reads its taps x C channels of maps and writes C + 2
-// outputs, with no atomics and no shared memory. dtri is the Pallas
-// `_stencil` (pallas_warp.py:71-78), jax's autodiff rule for
-// max(0, 1 - |d|): per axis, over the taps floor-1, floor, floor+1,
+// gv unused, so the caller passes a null gv). It writes d_loc [B, M, 2] in
+// (y, x) order, the location gradient as autograd takes it. The TPU kernel
+// builds dense [TH, E] triangle and derivative factor tiles for the MXU
+// because the TPU has no fast gather; here each point reads its own taps,
+// with no atomics and no shared memory. dtri is the Pallas `_stencil`
+// (pallas_warp.py:71-78), jax's autodiff rule for max(0, 1 - |d|): per
+// axis, over the taps floor-1, floor, floor+1,
 //     frac > 0:  tri = (0, 1-f, f),  dtri = (0,    -1, +1)
 //     frac == 0: tri = (0, 1,   0),  dtri = (-0.5, -1, +0.5)
-// so an exactly-integer coordinate reads three taps on that axis where the
-// forward gather reads one; a fractional point reads 2x2 taps. Each tap is
-// tested against [0, H-1] x [0, W-1] in float like gather_kernel (which also
-// drops NaN). Bound on this card: bytes. Per point it reads 8 + 4C bytes of
-// loc and values and writes 4C + 8 (4C of them only with gv); the taps' map
-// rows are L2-resident (128x128x4 floats = 256 KB per lane at the training
-// shape). Products and sums use __fmul_rn/__fadd_rn in a fixed order (y tap,
-// then x tap, then channel) that the plain PyTorch version repeats, so the
-// two agree bitwise.
+// Bound on this card: bytes. Per point it reads loc (8 B) and values (4C B)
+// and writes d_loc (8 B), and 4C B more with gv; the maps (128x128xC floats
+// a lane at the training shape, at most 2.1 MB a launch) are read from HBM
+// once and then hit in L2. Those are the bytes chip_smoke.py counts. What
+// goes through L1 beyond them is the taps: a fractional point reads 2 x 2
+// tap pixels, two neighbours per row. At C = 4 a row's pair is 32 B, one
+// 32-byte sector when the first tap's x is even and two when it is odd (1.5
+// a row); at C = 2 it is 16 B, two sectors only when x % 4 == 3 (1.25 a
+// row). So a point touches ~3 tap sectors at C = 4 and ~2.5 at C = 2 (more
+// at an integer coordinate, with three taps on that axis), beside 1 (C = 4)
+// or 0.75 (C = 2) sector of loc, values and d_loc: ~4x the bytes bound's
+// traffic, in four scattered loads a point (each a different cache line
+// for each thread of a warp). The design:
+// - loc is one float2 load and each tap pixel and value row one float4
+//   (C = 4) or float2 (C = 2) load, through the read-only path; d_loc is one
+//   float2 store per point and gv one vector store (a misaligned input takes
+//   the scalar instance);
+// - a point fractional on both axes (read_quad, quad_sums) loads its 2 x 2
+//   taps up front and sums them with tri (1 - f, f) and dtri (-1, +1); an
+//   out-of-frame tap is read as 0. A point with an integer coordinate takes
+//   the general path (dual_sums): each axis cut to its taps of non-zero
+//   weight inside the frame (dual_axis), three at an integer coordinate;
+// - each thread takes kFusedPoints points of one lane, blockDim.x apart
+//   (coalesced), with the loads of all their taps before any sum;
+// - without gv, a row whose values are all zero reads no taps and writes
+//   d_loc = (+0, +0): the events that purge_unfeasible moved to (0, 0) with
+//   a zero mask, padding rows and events whose location gets no gradient
+//   (about half the C = 4 rows and two thirds of the C = 2 rows of a
+//   training step).
+// On an H100 the kernel takes ~2.7x its bound at C = 4 and ~2.9x at C = 2,
+// ~1.6x with a training step's share of zero-valued rows (PERF.md). In
+// every case the tap sectors counted above pass through L2 at 4.3-4.7
+// TB/s, and no launch shape, occupancy or schedule tried moved that by
+// more than ~5%: the tap traffic binds it.
+// Products and sums use __fmul_rn/__fadd_rn (no FMA contraction) in the
+// order y tap, x tap, channel, each sum starting at +0, as the plain PyTorch
+// version sums, so the two agree bitwise on finite maps: a sum that starts
+// at +0 is never -0 under round-to-nearest, so the terms skipped here, and
+// the out-of-frame taps added as 0, each +-0 (a zero weight, value or tap
+// times a finite number), change no bit. The one difference: a NaN or Inf
+// in a skipped tap or under a zero-valued row, which the plain version
+// turns into NaN (as for gather_kernel).
 //
 // row_gather_kernel replaces the TPU row fetch `dma_gather`
 // (scripts/bench_dma_gather.py:54, call :99), which issues one HBM->VMEM DMA
@@ -116,6 +149,10 @@ constexpr int kThreads = 256;
 // 4 points per thread on an H100 (PERF.md)
 constexpr int kGatherThreads = 128;
 constexpr int kGatherPoints = 2;  // points per thread
+// the fused gather's: the fastest of the same six shapes at the training
+// step's shapes (tools/bench_fused_shapes.py, PERF.md)
+constexpr int kFusedThreads = 128;
+constexpr int kFusedPoints = 1;
 
 // C floats at p (a pixel or a value row) as one float4 (C = 4) or float2
 // (C = 2) through the read-only path when V (p aligned to 4C bytes), else
@@ -286,94 +323,222 @@ gather_kernel(const float* __restrict__ maps, const float* __restrict__ loc,
   }
 }
 
-// The dual stencil of one axis over the taps floor(c) - 1 + k, k = 0, 1, 2:
-// weights tri/dtri (zero for a tap outside [0, size - 1]), the tap index and
-// whether the tap has to be read at all.
-__device__ __forceinline__ void dual_axis(float c, int size, float* tri,
-                                          float* dtri, int* tap, bool* need) {
+// One axis of the dual stencil at coordinate c, cut to its taps of
+// non-zero weight inside [0, size - 1]: n taps (0..3) from `first`, with
+// weights tri[i], dtri[i] for i < n.
+struct DualAxis {
+  int first;
+  int n;
+  float tri[3];
+  float dtri[3];
+};
+
+__device__ __forceinline__ DualAxis dual_axis(float c, int size) {
   const float c0 = floorf(c);
   const float f = c - c0;
   const bool integer = f == 0.0f;
-  const float t3[3] = {0.0f, 1.0f - f, f};
-  const float d3[3] = {integer ? -0.5f : 0.0f, -1.0f, integer ? 0.5f : 1.0f};
+  // the taps lo .. c0 + 1 and their weights: floor and floor + 1 at a
+  // fractional coordinate, floor - 1 .. floor + 1 at an integer one
+  const float lo = integer ? c0 - 1.0f : c0;
+  const float hi = c0 + 1.0f;
+  const float t[3] = {integer ? 0.0f : 1.0f - f, integer ? 1.0f : f, 0.0f};
+  const float d[3] = {integer ? -0.5f : -1.0f, integer ? -1.0f : 1.0f, 0.5f};
+  DualAxis a;
+  a.first = 0;
+  a.n = 0;
+  if (!(hi >= 0.0f && lo <= (float)(size - 1))) {  // out of frame, or NaN
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float t = c0 + (float)(k - 1);
-    const bool ok = t >= 0.0f && t <= (float)(size - 1);  // also drops NaN
-    tri[k] = ok ? t3[k] : 0.0f;
-    dtri[k] = ok ? d3[k] : 0.0f;
-    need[k] = ok && (t3[k] != 0.0f || d3[k] != 0.0f);
-    tap[k] = need[k] ? (int)t : 0;
+    for (int i = 0; i < 3; ++i) a.tri[i] = a.dtri[i] = 0.0f;
+    return a;
   }
-}
-
-template <int C>
-__global__ void gather_fused_kernel(const float* __restrict__ maps,
-                                    const float* __restrict__ loc,
-                                    const float* __restrict__ values,
-                                    float* __restrict__ gv,
-                                    float* __restrict__ dy,
-                                    float* __restrict__ dx, int M, int H,
-                                    int W) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= M) return;
-  const int b = blockIdx.y;
-  const int64_t row = (int64_t)b * M + e;
-  float wy[3], dwy[3], wx[3], dwx[3];
-  int ty[3], tx[3];
-  bool ny[3], nx[3];
-  dual_axis(loc[2 * row], H, wy, dwy, ty, ny);
-  dual_axis(loc[2 * row + 1], W, wx, dwx, tx, nx);
-  const float* img = maps + (int64_t)b * H * W * C;
-  float g[C], sy[C], sx[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) g[c] = sy[c] = sx[c] = 0.0f;
+  const float first = lo < 0.0f ? 0.0f : lo;
+  const float last = hi > (float)(size - 1) ? (float)(size - 1) : hi;
+  const int skip = (int)(first - lo);  // taps below the frame: 0, 1 or 2
+  a.first = (int)first;
+  a.n = (int)(last - first) + 1;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    // a: the x contraction with tri, bx: with dtri, for this y tap
+    const int k1 = i + 1 < 3 ? i + 1 : 2, k2 = 2;  // (i + skip), clamped
+    a.tri[i] = skip == 0 ? t[i] : skip == 1 ? t[k1] : t[k2];
+    a.dtri[i] = skip == 0 ? d[i] : skip == 1 ? d[k1] : d[k2];
+  }
+  return a;
+}
+
+// The general path of the fused gather: one point's sums over its dual
+// stencil (dual_axis on each axis), reading each tap row as it goes; in
+// the kernel's order (y tap, x tap, channel). Taken by points with an
+// integer (or non-finite) coordinate.
+template <int C, bool V, bool G>
+__device__ __forceinline__ void dual_sums(const float* img, float2 p, int H,
+                                          int W, float* g, float* sy,
+                                          float* sx) {
+  const DualAxis y = dual_axis(p.x, H);
+  const DualAxis x = dual_axis(p.y, W);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i >= y.n) break;
+    const float* row = img + ((int64_t)(y.first + i) * W + x.first) * C;
+    float m[3][C];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j < x.n) load_row<C, V>(row + j * C, m[j]);
+    }
+    // the x contraction of this tap row with tri (a) and dtri (bx)
     float a[C], bx[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) a[c] = bx[c] = 0.0f;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const bool need = ny[i] && nx[j];
-      const float* px = img + ((int64_t)ty[i] * W + tx[j]) * C;
+      if (j >= x.n) break;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float m = need ? px[c] : 0.0f;
-        a[c] = __fadd_rn(a[c], __fmul_rn(wx[j], m));
-        bx[c] = __fadd_rn(bx[c], __fmul_rn(dwx[j], m));
+        a[c] = __fadd_rn(a[c], __fmul_rn(x.tri[j], m[j][c]));
+        bx[c] = __fadd_rn(bx[c], __fmul_rn(x.dtri[j], m[j][c]));
       }
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      g[c] = __fadd_rn(g[c], __fmul_rn(wy[i], a[c]));
-      sy[c] = __fadd_rn(sy[c], __fmul_rn(dwy[i], a[c]));
+      if (G) g[c] = __fadd_rn(g[c], __fmul_rn(y.tri[i], a[c]));
+      sy[c] = __fadd_rn(sy[c], __fmul_rn(y.dtri[i], a[c]));
+      sx[c] = __fadd_rn(sx[c], __fmul_rn(y.tri[i], bx[c]));
+    }
+  }
+}
+
+// A point whose coordinates are both fractional: its 2 x 2 taps
+// (y0 + i, x0 + j), read up front, an out-of-frame one as 0.
+template <int C>
+struct QuadTaps {
+  float fy, fx;  // the fractions; 0 marks a point for the general path
+  float m[2][2][C];
+};
+
+template <int C, bool V>
+__device__ __forceinline__ void read_quad(const float* img, float2 p, int H,
+                                          int W, QuadTaps<C>& q) {
+  const float y0 = floorf(p.x);
+  const float x0 = floorf(p.y);
+  q.fy = p.x - y0;
+  q.fx = p.y - x0;
+  // NaN and Inf give a NaN fraction: the general path drops them
+  if (!(q.fy > 0.0f && q.fx > 0.0f)) {
+    q.fy = 0.0f;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float ty = y0 + (float)i;
+    const bool in_y = ty >= 0.0f && ty <= (float)(H - 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float tx = x0 + (float)j;
+      if (in_y && tx >= 0.0f && tx <= (float)(W - 1)) {
+        load_row<C, V>(img + ((int64_t)ty * W + (int64_t)tx) * C, q.m[i][j]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c) q.m[i][j][c] = 0.0f;
+      }
+    }
+  }
+}
+
+// The sums of a fractional point: tri (1 - f, f) and dtri (-1, +1) on both
+// axes, in the general path's order. An out-of-frame tap adds w * 0 = +-0,
+// which changes no bit of a sum that starts at +0.
+template <int C, bool G>
+__device__ __forceinline__ void quad_sums(const QuadTaps<C>& q, float* g,
+                                          float* sy, float* sx) {
+  const float wy[2] = {1.0f - q.fy, q.fy};
+  const float wx[2] = {1.0f - q.fx, q.fx};
+  const float dw[2] = {-1.0f, 1.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float a[C], bx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) a[c] = bx[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        a[c] = __fadd_rn(a[c], __fmul_rn(wx[j], q.m[i][j][c]));
+        bx[c] = __fadd_rn(bx[c], __fmul_rn(dw[j], q.m[i][j][c]));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (G) g[c] = __fadd_rn(g[c], __fmul_rn(wy[i], a[c]));
+      sy[c] = __fadd_rn(sy[c], __fmul_rn(dw[i], a[c]));
       sx[c] = __fadd_rn(sx[c], __fmul_rn(wy[i], bx[c]));
     }
   }
-  float ddy = 0.0f, ddx = 0.0f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float v = values[row * C + c];
-    ddy = __fadd_rn(ddy, __fmul_rn(v, sy[c]));
-    ddx = __fadd_rn(ddx, __fmul_rn(v, sx[c]));
-  }
-  if (gv != nullptr) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) gv[row * C + c] = g[c];
-  }
-  dy[row] = ddy;
-  dx[row] = ddx;
 }
 
-template <int C>
-void launch_gather_fused(const float* maps, const float* loc,
-                         const float* values, float* gv, float* dy, float* dx,
-                         int B, int M, int H, int W, cudaStream_t s) {
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  gather_fused_kernel<C><<<grid, kThreads, 0, s>>>(maps, loc, values, gv, dy,
-                                                   dx, M, H, W);
+// G: gv is written (and every row reads its taps).
+template <int C, bool V, bool G>
+__global__ void __launch_bounds__(kFusedThreads)
+gather_fused_kernel(const float* __restrict__ maps,
+                    const float* __restrict__ loc,
+                    const float* __restrict__ values, float* __restrict__ gv,
+                    float* __restrict__ d_loc, int M, int H, int W) {
+  const int b = blockIdx.y;
+  const int stride = blockDim.x;
+  const int first = blockIdx.x * stride * kFusedPoints + threadIdx.x;
+  const float* img = maps + (int64_t)b * H * W * C;
+  // every point's loc and values, then the taps of every fractional point,
+  // then the sums
+  float2 p[kFusedPoints];
+  float v[kFusedPoints][C];
+#pragma unroll
+  for (int k = 0; k < kFusedPoints; ++k) {
+    const int e = first + k * stride;
+    if (e < M) {
+      const int64_t row = (int64_t)b * M + e;
+      p[k] = load_loc<V>(loc, row);
+      load_row<C, V>(values + row * C, v[k]);
+    }
+  }
+  bool skip[kFusedPoints];
+  QuadTaps<C> q[kFusedPoints];
+#pragma unroll
+  for (int k = 0; k < kFusedPoints; ++k) {
+    skip[k] = !G && first + k * stride < M;
+#pragma unroll
+    for (int c = 0; c < C; ++c) skip[k] &= v[k][c] == 0.0f;  // NaN is not 0
+    // d_loc = (+0, +0) without reading a tap where every value is zero
+    if (!skip[k] && first + k * stride < M) {
+      read_quad<C, V>(img, p[k], H, W, q[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kFusedPoints; ++k) {
+    const int e = first + k * stride;
+    if (e >= M) break;
+    float g[C], sy[C], sx[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) g[c] = sy[c] = sx[c] = 0.0f;
+    if (!skip[k]) {
+      if (q[k].fy != 0.0f) {
+        quad_sums<C, G>(q[k], g, sy, sx);
+      } else {
+        dual_sums<C, V, G>(img, p[k], H, W, g, sy, sx);
+      }
+    }
+    float ddy = 0.0f, ddx = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ddy = __fadd_rn(ddy, __fmul_rn(v[k][c], sy[c]));
+      ddx = __fadd_rn(ddx, __fmul_rn(v[k][c], sx[c]));
+    }
+    const int64_t row = (int64_t)b * M + e;
+    if (V) {
+      reinterpret_cast<float2*>(d_loc)[row] = make_float2(ddy, ddx);
+    } else {
+      d_loc[2 * row] = ddy;
+      d_loc[2 * row + 1] = ddx;
+    }
+    if (G) store_row<C, V>(gv + row * C, g);
+  }
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -405,6 +570,26 @@ void launch_gather(const float* maps, const float* loc, float* out, int B,
     gather_kernel<C, false><<<grid, kGatherThreads, 0, s>>>(maps, loc, out, M,
                                                             H, W);
   }
+}
+
+// The vector instance when loc and d_loc are 8-byte aligned and every row
+// pointer 4C-byte aligned (C = 2, 4), else the scalar one; gv written when
+// not null.
+template <int C>
+void launch_gather_fused(const float* maps, const float* loc,
+                         const float* values, float* gv, float* d_loc, int B,
+                         int M, int H, int W, cudaStream_t s) {
+  const int per_block = kFusedThreads * kFusedPoints;
+  const dim3 grid((M + per_block - 1) / per_block, B);
+  const bool v = aligned(loc, 8) && aligned(d_loc, 8) &&
+                 aligned(maps, 4 * C) && aligned(values, 4 * C) &&
+                 (gv == nullptr || aligned(gv, 4 * C));
+  auto* kernel = v ? (gv ? &gather_fused_kernel<C, true, true>
+                         : &gather_fused_kernel<C, true, false>)
+                   : (gv ? &gather_fused_kernel<C, false, true>
+                         : &gather_fused_kernel<C, false, false>);
+  kernel<<<grid, kFusedThreads, 0, s>>>(maps, loc, values, gv, d_loc, M, H,
+                                        W);
 }
 
 // V is float4, float2 or float; nv = W / (floats per V) vectors per row.
@@ -470,16 +655,16 @@ int tef_gather_bilinear(const float* maps, const float* loc, float* out,
   return (int)cudaGetLastError();
 }
 
-// gv may be null (not written); dy and dx may not.
+// d_loc [B, M, 2] is (dy, dx) per point; gv may be null (not written).
 int tef_gather_fused(const float* maps, const float* loc, const float* values,
-                     float* gv, float* dy, float* dx, int B, int M, int C,
-                     int H, int W, void* stream) {
+                     float* gv, float* d_loc, int B, int M, int C, int H,
+                     int W, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 1: launch_gather_fused<1>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
-    case 2: launch_gather_fused<2>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
-    case 3: launch_gather_fused<3>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
-    case 4: launch_gather_fused<4>(maps, loc, values, gv, dy, dx, B, M, H, W, s); break;
+    case 1: launch_gather_fused<1>(maps, loc, values, gv, d_loc, B, M, H, W, s); break;
+    case 2: launch_gather_fused<2>(maps, loc, values, gv, d_loc, B, M, H, W, s); break;
+    case 3: launch_gather_fused<3>(maps, loc, values, gv, d_loc, B, M, H, W, s); break;
+    case 4: launch_gather_fused<4>(maps, loc, values, gv, d_loc, B, M, H, W, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

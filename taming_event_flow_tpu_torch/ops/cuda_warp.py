@@ -19,7 +19,8 @@ its kernel, so a run can show that it went through the kernels.
 Splat and gather evaluate the 4-tap stencil ``tri(y - h) * tri(x - w)`` at
 the taps ``{floor(y), floor(y)+1} x {floor(x), floor(x)+1}``; taps outside
 ``[0, H-1] x [0, W-1]`` are dropped. The fused gather adds the derivative
-stencil ``dtri`` of the Pallas kernels (:func:`gather_fused_plain`).
+stencil ``dtri`` of the Pallas kernels (:func:`gather_fused_dloc_plain`)
+and writes the location gradient as one ``[B, M, 2]`` array.
 """
 
 from __future__ import annotations
@@ -121,21 +122,21 @@ def _dual_axis(coord, size: int):
     return taps
 
 
-def gather_fused_plain(maps, loc, values, with_gv: bool = True):
+def gather_fused_dloc_plain(maps, loc, values, with_gv: bool = True):
     """The gather and both location derivatives in one pass, contracted
     with ``values`` over channels::
 
-        gv[b, e, c] = sum tri(y - h) tri(x - w) maps[b, h, w, c]
-        dy[b, e]    = sum_c values[b, e, c] sum dtri(y - h) tri(x - w) maps
-        dx[b, e]    = sum_c values[b, e, c] sum tri(y - h) dtri(x - w) maps
+        gv[b, e, c]    = sum tri(y - h) tri(x - w) maps[b, h, w, c]
+        d_loc[b, e, 0] = sum_c values[b, e, c] sum dtri(y-h) tri(x-w) maps
+        d_loc[b, e, 1] = sum_c values[b, e, c] sum tri(y-h) dtri(x-w) maps
 
     summed in the kernel's order (y tap, x tap, channel).
 
     :param maps: ``[B, H, W, C]`` float32.
     :param loc: ``[B, M, 2]`` float32 ``(y, x)``.
     :param values: ``[B, M, C]`` float32.
-    :return: ``(gv [B, M, C] or None when not with_gv, dy [B, M],
-        dx [B, M])``.
+    :return: ``(gv [B, M, C] or None when not with_gv, d_loc [B, M, 2]``
+        ``(dy, dx))``.
     """
     b, h, w, c = maps.shape
     flat = maps.reshape(b, h * w, c)
@@ -158,7 +159,14 @@ def gather_fused_plain(maps, loc, values, with_gv: bool = True):
     for ch in range(c):
         dy = dy + values[..., ch] * sy[..., ch]
         dx = dx + values[..., ch] * sx[..., ch]
-    return (gv if with_gv else None), dy, dx
+    return (gv if with_gv else None), torch.stack([dy, dx], dim=-1)
+
+
+def gather_fused_plain(maps, loc, values, with_gv: bool = True):
+    """:func:`gather_fused_dloc_plain` as ``(gv, dy [B, M], dx [B, M])``,
+    ``dy`` and ``dx`` the columns of its ``d_loc``."""
+    gv, d_loc = gather_fused_dloc_plain(maps, loc, values, with_gv)
+    return gv, d_loc[..., 0], d_loc[..., 1]
 
 
 def row_gather_plain(table, idx):
@@ -283,10 +291,12 @@ def gather_bilinear(maps, loc):
     return out
 
 
-def gather_fused(maps, loc, values, with_gv: bool = True):
-    """Fused dual-stencil gather (see :func:`gather_fused_plain`): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors. ``C <= 4``
-    on the card; ``with_gv=False`` skips the gather values."""
+def gather_fused_dloc(maps, loc, values, with_gv: bool = True):
+    """Fused dual-stencil gather (see :func:`gather_fused_dloc_plain`): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    ``C <= 4`` on the card; ``with_gv=False`` skips the gather values.
+    Returns ``(gv or None, d_loc [B, M, 2])``, ``d_loc`` in ``(y, x)`` order
+    as the location gradient of ``loc``."""
     _check("maps", maps, 4)
     _check("loc", loc, 3, 2)
     _check("values", values, 3)
@@ -295,20 +305,26 @@ def gather_fused(maps, loc, values, with_gv: bool = True):
     if loc.shape[0] != b or values.shape != (b, m, c):
         raise ValueError("maps, loc and values disagree on [B, M, C]")
     if not _on_card(maps, loc, values):
-        return gather_fused_plain(maps, loc, values, with_gv)
+        return gather_fused_dloc_plain(maps, loc, values, with_gv)
     _channels("fused gather", c)
     dev = maps.device
     gv = (torch.empty(b, m, c, dtype=torch.float32, device=dev)
           if with_gv else None)
-    dy = torch.empty(b, m, dtype=torch.float32, device=dev)
-    dx = torch.empty(b, m, dtype=torch.float32, device=dev)
+    d_loc = torch.empty(b, m, 2, dtype=torch.float32, device=dev)
     if b * m == 0:
-        return gv, dy, dx
+        return gv, d_loc
     _launch(_library().tef_gather_fused, "gather_fused", dev, maps.data_ptr(),
             loc.data_ptr(), values.data_ptr(),
-            None if gv is None else gv.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), b, m, c, h, w)
-    return gv, dy, dx
+            None if gv is None else gv.data_ptr(), d_loc.data_ptr(), b, m, c,
+            h, w)
+    return gv, d_loc
+
+
+def gather_fused(maps, loc, values, with_gv: bool = True):
+    """:func:`gather_fused_dloc` as ``(gv, dy [B, M], dx [B, M])``, ``dy``
+    and ``dx`` the columns of its ``d_loc``."""
+    gv, d_loc = gather_fused_dloc(maps, loc, values, with_gv)
+    return gv, d_loc[..., 0], d_loc[..., 1]
 
 
 def row_gather(table, idx):
@@ -350,7 +366,7 @@ def _cot(g):
 class SplatBilinearFn(torch.autograd.Function):
     """Differentiable splat, the counterpart of ``_splat_vjp``
     (``pallas_warp.py:394-417``): the backward is one fused gather of the
-    cotangent image, ``(d_values, d_y, d_x) = gather_fused(g, loc,
+    cotangent image, ``(d_values, d_loc) = gather_fused_dloc(g, loc,
     values)``; without a location gradient, a plain gather of ``g``."""
 
     @staticmethod
@@ -365,9 +381,8 @@ class SplatBilinearFn(torch.autograd.Function):
         g = _cot(g)
         d_loc = d_values = None
         if need_loc:
-            d_values, d_y, d_x = gather_fused(g, loc, values,
-                                              with_gv=need_values)
-            d_loc = torch.stack([d_y, d_x], dim=-1)
+            d_values, d_loc = gather_fused_dloc(g, loc, values,
+                                                with_gv=need_values)
         elif need_values:
             d_values = gather_bilinear(g, loc)
         return d_loc, d_values, None
@@ -376,7 +391,8 @@ class SplatBilinearFn(torch.autograd.Function):
 class GatherBilinearFn(torch.autograd.Function):
     """Differentiable gather, the counterpart of ``_gather_vjp``
     (``pallas_warp.py:420-443``): ``d_maps = splat_bilinear(loc, g)`` and
-    ``(_, d_y, d_x) = gather_fused(maps, loc, g)``, each only when needed."""
+    ``(_, d_loc) = gather_fused_dloc(maps, loc, g)``, each only when
+    needed."""
 
     @staticmethod
     def forward(ctx, maps, loc):
@@ -392,6 +408,5 @@ class GatherBilinearFn(torch.autograd.Function):
         if need_maps:
             d_maps = splat_bilinear(loc, g, (maps.shape[1], maps.shape[2]))
         if need_loc:
-            _, d_y, d_x = gather_fused(maps, loc, g, with_gv=False)
-            d_loc = torch.stack([d_y, d_x], dim=-1)
+            _, d_loc = gather_fused_dloc(maps, loc, g, with_gv=False)
         return d_maps, d_loc

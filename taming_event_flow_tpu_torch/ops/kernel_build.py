@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -60,13 +61,63 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
-    lib.tef_gather_fused.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.tef_gather_fused.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.tef_gather_fused.restype = i32
     lib.tef_row_gather.argtypes = [ptr, ptr, ptr, ctypes.c_int64, i32, i32,
                                    ptr]
     lib.tef_row_gather.restype = i32
     lib.tef_error_string.argtypes = [i32]
     lib.tef_error_string.restype = ctypes.c_char_p
+
+
+def compile_library(source: str, so: str):
+    """Compile ``source`` with nvcc into the shared library ``so`` (written
+    atomically, so concurrent builders agree); returns ``(seconds, log)``,
+    the log being ptxas's report (see :func:`ptxas_report`)."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+    os.replace(tmp, so)
+    return seconds, log
+
+
+def open_library(so: str) -> ctypes.CDLL:
+    """Load a built library and declare its C entry points."""
+    lib = ctypes.CDLL(so)
+    _declare(lib)
+    return lib
+
+
+def ptxas_report(log: str):
+    """Per kernel instance of a build log: ``(name, registers, spill stores
+    + loads in bytes)``, the name demangled as far as ``kernel<args>``."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"\d([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
+            if m is None:
+                name = mangled
+            else:
+                args = re.findall(r"L[ib](\d+)E", m.group(2) + "E")
+                name = f"{m.group(1)}<{','.join(args) or m.group(2)}>"
+        stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if stores:
+            spill = int(stores.group(1)) + int(stores.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name is not None:
+            out.append((name, int(regs.group(1)), spill))
+            name, spill = None, 0
+    return out
 
 
 def load() -> KernelLibrary:
@@ -84,20 +135,6 @@ def load() -> KernelLibrary:
         seconds, log = 0.0, ""
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True, text=True,
-            )
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed for {SOURCE}:\n{log}")
-            os.replace(tmp, so)  # atomic: concurrent builders agree
-        lib = ctypes.CDLL(so)
-        _declare(lib)
-        _loaded.append(KernelLibrary(lib, so, seconds, log))
+            seconds, log = compile_library(SOURCE, so)
+        _loaded.append(KernelLibrary(open_library(so), so, seconds, log))
         return _loaded[0]

@@ -203,11 +203,15 @@ def test_set_tf32_sets_both_flags():
 @pytest.mark.parametrize("res,m", SHAPES)
 @pytest.mark.parametrize("c", [2, 4])
 def test_gather_fused_matches_pallas(rng, res, m, c):
-    """Non-integer and exactly integer coordinates (on one axis or both),
-    in frame and out of frame, against ``_gather_fused_raw`` in interpret
-    mode."""
+    """Non-integer and exactly integer coordinates (on y, on x, on both),
+    in frame and out of frame, and rows whose values are all zero (at
+    random locations and purged to (0, 0)), against ``_gather_fused_raw`` in
+    interpret mode."""
     loc, vals = make_events(rng, res, m, c=c)
     loc[:, m // 4: m // 3, 1] = np.round(loc[:, m // 4: m // 3, 1])
+    loc[:, m // 3: m // 2, 0] = np.round(loc[:, m // 3: m // 2, 0])
+    loc[:, -m // 16:] = 0.0  # zero-valued rows moved to (0, 0)
+    assert not vals[:, -m // 8:].any()
     maps = rng.normal(size=(2, res[0], res[1], c)).astype(np.float32)
     ref = jpallas._gather_fused_raw(jnp.asarray(maps), jnp.asarray(loc),
                                     jnp.asarray(vals))
@@ -222,6 +226,51 @@ def test_gather_fused_matches_pallas(rng, res, m, c):
     assert gv is None
     torch.testing.assert_close(dy, out[1], rtol=0, atol=0)
     torch.testing.assert_close(dx, out[2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_gv", [True, False])
+@pytest.mark.parametrize("c", [2, 4])
+def test_gather_fused_dloc_is_the_stacked_columns(rng, with_gv, c):
+    """``gather_fused_dloc`` returns ``(gv, d_loc)`` with ``d_loc`` exactly
+    ``torch.stack([dy, dx], -1)`` of ``gather_fused``'s output."""
+    res, m = (9, 13), 64
+    loc, vals = make_events(rng, res, m, c=c)
+    t = torch.from_numpy
+    maps = t(rng.normal(size=(2,) + res + (c,)).astype(np.float32))
+    gv, dy, dx = tops.gather_fused(maps, t(loc), t(vals), with_gv=with_gv)
+    gv2, d_loc = tops.gather_fused_dloc(maps, t(loc), t(vals),
+                                        with_gv=with_gv)
+    assert d_loc.shape == (2, m, 2) and d_loc.is_contiguous()
+    assert torch.equal(d_loc.view(torch.int32),
+                       torch.stack([dy, dx], -1).view(torch.int32))
+    assert (gv is None) == (gv2 is None) == (not with_gv)
+    if with_gv:
+        assert torch.equal(gv, gv2)
+
+
+@pytest.mark.parametrize("c", [2, 4])
+def test_gather_fused_zero_rows_give_positive_zero(rng, c):
+    """A row whose values are all zero (+0 or -0) gets ``d_loc = (+0, +0)``
+    with the sign bit clear, wherever it sits and whatever the map holds
+    there; with ``with_gv`` its gather values are still read. The CUDA
+    kernel skips such a row's taps on this ground."""
+    res = (6, 7)
+    maps = -torch.from_numpy(np.abs(rng.normal(size=(1,) + res + (c,)))
+                             .astype(np.float32)) - 1.0
+    loc = torch.tensor([[[0.0, 0.0], [2.5, 3.25], [3.0, 4.0], [-0.5, 6.5],
+                         [1.75, 2.0]]])
+    vals = torch.zeros(1, 5, c)
+    vals[0, 1:, 0] = -0.0
+    vals[0, 4] = 1.0  # one real row beside them
+    for with_gv in (False, True):
+        gv, d_loc = tops.gather_fused_dloc(maps, loc, vals, with_gv=with_gv)
+        zero = d_loc[0, :4]
+        assert torch.equal(zero, torch.zeros_like(zero))
+        assert not torch.signbit(zero).any()
+        assert d_loc[0, 4].abs().min() > 0
+    # the zero rows' gather values: the bilinear weights of a negative map
+    assert (gv[0, :3] < 0).all()
+    torch.testing.assert_close(gv, tops.gather_bilinear(maps, loc), **TOL)
 
 
 def test_gather_fused_dual_stencil_at_integers():
@@ -300,13 +349,13 @@ def test_functions_skip_the_halves_nobody_needs(rng, monkeypatch):
     loc, vals = make_events(rng, (8, 10), 32, c=2, integers=False)
     maps = torch.rand(2, 8, 10, 2, requires_grad=True)
     calls = []
-    real = tops.cuda_warp.gather_fused
+    real = tops.cuda_warp.gather_fused_dloc
 
     def spy(*args, **kwargs):
         calls.append(kwargs.get("with_gv", True))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(tops.cuda_warp, "gather_fused", spy)
+    monkeypatch.setattr(tops.cuda_warp, "gather_fused_dloc", spy)
     tl = torch.from_numpy(loc)
     tops.gather_values(maps, tl).sum().backward()
     assert calls == [] and maps.grad is not None
