@@ -59,8 +59,27 @@ one NVIDIA card.
    Then float32 on the card
    against the CPU at B=1 (:func:`card_vs_cpu`): the step's loss, the loss's
    flow gradient on identical flows and the model's parameter gradients
-   for one flow cotangent must agree.
-7. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+   for one flow cotangent must agree. Printed beside them: the card's
+   float32 model gradients against float64 under each float32 setting of
+   :func:`precision_settings` (IEEE by the torch 2.9+ precision API,
+   deterministic cuDNN, cuDNN off, TF32 on), the same for one convolution
+   and one upsampling alone (:func:`precision_ops_probe`), and the gaps
+   over the first 1 and 3 passes.
+7. Training CLI phase: ``train_flow_torch.train`` on the card with
+   ``configs/train_flow.yml``'s values (``TRAIN_CLI_CONFIG``, no PyYAML
+   needed) over two synthetic sequences of 8,192 events per 10 ms pass:
+   two epochs, then a warm start from that run for one more. Through
+   ``.h5`` files and the port's ``H5Loader`` where h5py imports, else a
+   subclass serving the same arrays from memory (:func:`memory_loader`).
+   The losses must be finite and change, the warm start must restore the
+   model and replay the history, the checkpoint must load on the card with
+   its Adam step count equal to the steps taken, and the launch counters
+   must show 124 splats, 80 gathers and 116 fused gathers per step. Prints
+   ms per step, the loop's ``SectionTimer`` report and the loader's host
+   ms per loss window.
+8. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+   A line after the card's first print gives the version of h5py, PyYAML,
+   cv2 and tensorboard there (``null`` where one does not import).
 
 Any failure raises, and the script exits non-zero without the last line.
 It imports nothing of JAX or the JAX package.
@@ -71,8 +90,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +123,11 @@ FUSED_M = PASSES * TRAIN_N  # the IWE splat at tref 5 holds all ten windows
 TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, float32
 TRAIN_GRAD_TOL = 1e-3  # max abs error per tensor, x that tensor's max |g|
 JITTER = 1e-6  # relative move of weights or flows for the CPU's own gap
+GAP_PASSES = (1, 3)  # f32 model-gradient gaps over the first passes too
+KINK_JITTER = 1e-7  # relative move of the weights for f64's own gradient gap
+# f32 model gradients on the card with f64's ReLU masks against f64, global
+# relative L2 (the CPU's f32 sits at 2.53e-7 with its own masks)
+KINK_GRAD_TOL = 1e-5
 # rectified slice: a mild radial distortion and a border of out-of-source
 # pixels, as cv2's remap leaves around a rectified DSEC frame
 RECT_K = 0.05
@@ -127,6 +153,30 @@ DSEC_CONFIG = {
             "mask_output": False, "dynamic": True, "show": ["flow_bw"]},
 }
 MODEL_CONFIG = {"name": "RecEVFlowNet", "final_w_scale": 0.01}
+
+# training CLI: configs/train_flow.yml's values (data.path and loader.seed
+# are set at run time; n_epochs is the phase's, not the yml's 500)
+TRAIN_CLI_CONFIG = {
+    "experiment": "Default",
+    "data": {"mode": "time", "window": 0.01, "passes_loss": PASSES,
+             "scales_loss": 1, "voxel": None, "cache": False},
+    "model": MODEL_CONFIG,
+    "loss": {"warping": "Iterative", "iterative_mode": "two",
+             "round_ts": False, "flow_scaling": 32,
+             "flow_spat_smooth_weight": None,
+             "flow_temp_smooth_weight": None, "clip_grad": TRAIN_CLIP},
+    "optimizer": TRAIN_OPT,
+    "loader": {"batch_size": 1, "resolution": list(TRAIN_RES),
+               "augment": ["Horizontal", "Vertical", "Polarity"],
+               "augment_prob": [0.5, 0.5, 0.5],
+               "max_num_grad_events": 10000, "n_events_pad": None},
+    "vis": {"verbose": True, "enabled": False, "store": False, "px": 400},
+}
+CLI_SEQUENCES = 2
+CLI_DURATION = 0.25  # s: 24 passes of 10 ms, 2 loss windows a sequence
+CLI_EVENTS = TRAIN_N * 25  # 8,192 events per 10 ms pass
+CLI_EPOCHS = 2  # then a warm start for one more
+CLI_TIMED_WINDOWS = 3  # loss windows of the loader timed alone
 
 
 def check(cond, msg):
@@ -1428,6 +1478,197 @@ def card_vs_cpu(rng):
         (w32, n32), g32 = grad_gaps(models[dev, torch.float32], ref)
         print(f"f32 model gradients on {dev} vs f64 on cpu: worst {w32:.2e} "
               f"({n32}), global {g32:.2e}")
+    f32_backward_probe(lambda m: flows_of(m, w_card).backward(
+        g_flow["cpu"].to(DEVICE)), ref)
+    kink_probe(lambda m, dev, dtype: flows_of(
+        m, w_card if dev == DEVICE else w_cpu, dtype).backward(
+            g_flow["cpu"].to(dev)))
+
+    # the same gaps over the first passes only: a gap that grows with the
+    # passes comes through the recurrence
+    for passes in GAP_PASSES:
+        models = {}
+        for dev, dtype, w in ((DEVICE, torch.float32, w_card),
+                              ("cpu", torch.float32, w_cpu),
+                              ("cpu", torch.float64, w_cpu)):
+            m = build_model(MODEL_CONFIG, num_bins=2, device=dev,
+                            seed=0).to(dtype)
+            first = {"net_input": w["net_input"][:passes]}
+            flows_of(m, first, dtype).backward(
+                g_flow["cpu"][:passes].to(dev))
+            models[dev, dtype] = m
+        ref_p = models["cpu", torch.float64]
+        for dev in (DEVICE, "cpu"):
+            (w32, n32), g32 = grad_gaps(models[dev, torch.float32], ref_p)
+            print(f"f32 model gradients on {dev} vs f64 on cpu, first "
+                  f"{passes} passes: worst {w32:.2e} ({n32}), global "
+                  f"{g32:.2e}")
+
+
+def precision_settings():
+    """``(tag, [(owner, attribute, value), ...])`` of the float32 settings
+    the probes try, each set on top of ``set_tf32(False)``."""
+    import torch
+
+    b = torch.backends
+    return (("as set", []),
+            ("conv.fp32_precision=ieee", [(b.cudnn.conv, "fp32_precision",
+                                           "ieee")]),
+            ("deterministic", [(b.cudnn, "deterministic", True)]),
+            ("cudnn off", [(b.cudnn, "enabled", False)]),
+            ("every fp32_precision=ieee", [
+                (b, "fp32_precision", "ieee"),
+                (b.cuda.matmul, "fp32_precision", "ieee"),
+                (b.cudnn, "fp32_precision", "ieee"),
+                (b.cudnn.conv, "fp32_precision", "ieee")]),
+            ("set_tf32(True)", [(b.cudnn, "allow_tf32", True),
+                                (b.cuda.matmul, "allow_tf32", True)]))
+
+
+def under(pairs, fn):
+    """``fn()`` with each ``(owner, attribute, value)`` set, all restored
+    after (in reverse order)."""
+    before = [(o, a, getattr(o, a)) for o, a, _ in pairs]
+    try:
+        for o, a, v in pairs:
+            setattr(o, a, v)
+        return fn()
+    finally:
+        for o, a, v in reversed(before):
+            setattr(o, a, v)
+
+
+def precision_ops_probe(seed=0):
+    """Float32 on the card against float64 on the CPU, op by op, under each
+    of :func:`precision_settings`: a 3x3 convolution (64 -> 128 channels,
+    2x32x32) forward and its three gradients, and the decoders' bilinear x2
+    upsampling forward and backward. Prints ``max |err| / max |ref|`` per
+    output: ~1e-7 is float32, ~1e-3 is TF32's 10-bit mantissa."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 64, 32, 32, generator=gen, dtype=torch.float64)
+    w = torch.randn(128, 64, 3, 3, generator=gen, dtype=torch.float64) / 24
+    b = torch.randn(128, generator=gen, dtype=torch.float64)
+    g = torch.randn(2, 128, 32, 32, generator=gen, dtype=torch.float64)
+    gu = torch.randn(2, 64, 64, 64, generator=gen, dtype=torch.float64)
+
+    def leaf(t, dev, dtype):
+        return t.to(dev, dtype, copy=True).requires_grad_()
+
+    def ops(dev, dtype):
+        xs = [leaf(t, dev, dtype) for t in (x, w, b)]
+        y = F.conv2d(*xs, padding=1)
+        y.backward(g.to(dev, dtype))
+        xu = leaf(x, dev, dtype)
+        u = F.interpolate(xu, scale_factor=2, mode="bilinear",
+                          align_corners=False)
+        u.backward(gu.to(dev, dtype))
+        return {"conv y": y, "conv dx": xs[0].grad, "conv dw": xs[1].grad,
+                "conv db": xs[2].grad, "upsample y": u,
+                "upsample dx": xu.grad}
+
+    ref = ops("cpu", torch.float64)
+    for tag, pairs in precision_settings():
+        try:
+            got = under(pairs, lambda: ops(DEVICE, torch.float32))
+        except (AttributeError, RuntimeError) as e:
+            print(f"precision probe, {tag}: not available ({e})")
+            continue
+        errs = ", ".join(
+            f"{k} {max_ratio(v.detach().double(), ref[k].detach()):.2e}"
+            for k, v in got.items())
+        print(f"precision probe, {tag}: {errs}")
+
+
+def f32_backward_probe(backward, ref):
+    """The card's float32 model gradients for one flow cotangent against
+    float64 on the CPU (``ref``) under each of :func:`precision_settings`.
+    ``backward(m)`` runs the passes of model ``m`` and their backward."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+
+    cudnn = torch.backends.cudnn
+    print(f"cudnn settings: allow_tf32 {cudnn.allow_tf32}, conv "
+          f"fp32_precision {getattr(cudnn.conv, 'fp32_precision', None)}, "
+          f"deterministic {cudnn.deterministic}, benchmark {cudnn.benchmark}"
+          f"; cuda.matmul allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    def run():
+        m = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+        backward(m)
+        return m
+
+    for tag, pairs in precision_settings():
+        try:
+            m = under(pairs, run)
+        except (AttributeError, RuntimeError) as e:
+            print(f"f32 model gradients, {tag}: not available ({e})")
+            continue
+        (worst, name), glob = grad_gaps(m, ref)
+        print(f"f32 model gradients on {DEVICE}, {tag}, vs f64 on cpu: "
+              f"worst {worst:.2e} ({name}), global {glob:.2e}")
+    precision_ops_probe()
+
+
+def kink_probe(backward):
+    """Whether the card's float32 gradient gap is the model's own jumps:
+    float64 on the CPU against itself with every weight moved by
+    ``KINK_JITTER`` (relative); the ReLU inputs that float32 puts on the
+    other side of zero from float64 (ReLU's derivative jumps there); and
+    float32 on the card with float64's ReLU masks, which must sit within
+    ``KINK_GRAD_TOL`` of float64. ``backward(m, dev, dtype)`` runs the
+    passes of model ``m`` and their backward."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import blocks, build_model
+
+    def run(dev, dtype, jitter=0.0, masks=None):
+        seen = []
+
+        def relu(x):
+            seen.append(x.detach().cpu().double())
+            if masks is None:
+                return torch.relu(x)
+            return x * masks[len(seen) - 1].to(x.device, x.dtype)
+
+        blocks._ACTIVATIONS["relu"] = relu
+        try:
+            m = build_model(MODEL_CONFIG, num_bins=2, device=dev,
+                            seed=0).to(dtype)
+        finally:
+            blocks._ACTIVATIONS["relu"] = torch.relu
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for p in m.parameters() if jitter else ():
+                noise = torch.randn(p.shape, generator=gen, dtype=dtype)
+                p.mul_(1 + jitter * noise.to(dev))
+        backward(m, dev, dtype)
+        return m, seen
+
+    ref, ref_in = run("cpu", torch.float64)
+    moved, _ = run("cpu", torch.float64, KINK_JITTER)
+    (worst, name), glob = grad_gaps(moved, ref)
+    print(f"f64 model gradients on cpu, weights moved by {KINK_JITTER:g}, "
+          f"vs unmoved: worst {worst:.2e} ({name}), global {glob:.2e}")
+    total = sum(x.numel() for x in ref_in)
+    for dev in (DEVICE, "cpu"):
+        _, got = run(dev, torch.float32)
+        across = [(a > 0) != (b > 0) for a, b in zip(got, ref_in)]
+        n = int(sum(int(f.sum()) for f in across))
+        near = max((float(b[f].abs().max()) for f, b in zip(across, ref_in)
+                    if f.any()), default=0.0)
+        print(f"ReLU inputs across zero from f64 on cpu, f32 on {dev}: {n} "
+              f"of {total} (largest |f64 input| among them {near:.2e})")
+    masked, _ = run(DEVICE, torch.float32, masks=[b > 0 for b in ref_in])
+    (worst, name), glob = grad_gaps(masked, ref)
+    print(f"f32 model gradients on {DEVICE} with f64's ReLU masks vs f64 on "
+          f"cpu: worst {worst:.2e} ({name}), global {glob:.2e}")
+    check(glob <= KINK_GRAD_TOL,
+          f"f32 model gradients with f64's ReLU masks off by {glob}")
 
 
 def train_phase(rng, profile_dir):
@@ -1481,6 +1722,213 @@ def train_phase(rng, profile_dir):
     return launches, ms_step
 
 
+# ------------------------------------------------------- training CLI phase
+
+
+def optional_imports():
+    """The version of each optional host package the JAX package's data and
+    tracking paths use, or ``None`` where it does not import."""
+    import importlib
+
+    found = {}
+    for name in ("h5py", "yaml", "cv2", "tensorboard"):
+        try:
+            found[name] = importlib.import_module(name).__version__
+        except ImportError:
+            found[name] = None
+    return found
+
+
+class _MemoryFile:
+    """The part of an ``h5py.File`` that ``H5Loader`` reads in the time and
+    events modes, over a ``data.SyntheticSequence`` held in memory."""
+
+    def __init__(self, seq):
+        self.datasets = seq.datasets
+        self.attrs = seq.attrs
+
+    def __getitem__(self, name):
+        return self.datasets[name]
+
+    def __contains__(self, group):
+        return any(k.startswith(group + "/") for k in self.datasets)
+
+    def get(self, name):
+        return self.datasets.get(name)
+
+    def close(self):
+        pass
+
+
+def memory_loader(sequences):
+    """A subclass of the port's ``H5Loader`` that serves ``sequences``
+    (path -> ``SyntheticSequence``) from memory: it overrides only the
+    methods that list and open the files, so every other line of the
+    loader runs as on ``.h5`` files."""
+    from taming_event_flow_tpu_torch.data import H5Loader
+
+    class MemoryH5Loader(H5Loader):
+        def list_files(self, root):
+            return sorted(p for p in sequences
+                          if os.path.dirname(p) == os.path.normpath(root))
+
+        def open_file(self, path):
+            return _MemoryFile(sequences[path])
+
+    return MemoryH5Loader
+
+
+def train_cli_config(path, seed):
+    """``configs/train_flow.yml``'s values (``TRAIN_CLI_CONFIG``) merged
+    over the port's defaults, without PyYAML, reading ``path``."""
+    from taming_event_flow_tpu_torch.configs import YAMLParser, deep_merge
+
+    parser = YAMLParser()
+    cfg = copy.deepcopy(TRAIN_CLI_CONFIG)
+    cfg["data"]["path"] = path
+    cfg["loader"]["seed"] = seed
+    deep_merge(parser.config, cfg)
+    return parser
+
+
+def train_cli_phase(seed, work):
+    """The training CLI, ``train_flow_torch.train``, on the card at full
+    width: two epochs over two synthetic sequences, then a warm start from
+    that run for one more epoch. Data through ``.h5`` files and the port's
+    ``H5Loader`` where h5py imports, else through ``memory_loader``.
+    Returns the launches of both runs, the loop's ms per optimizer step
+    and the loader's host ms per loss window."""
+    import contextlib
+    import io
+
+    import torch
+
+    import train_flow_torch
+    from taming_event_flow_tpu_torch.data import (
+        H5Loader,
+        synthetic_sequence,
+        write_synthetic_h5,
+    )
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.tracking import (
+        default_store,
+        load_checkpoint,
+    )
+    from taming_event_flow_tpu_torch.training import stack_window
+    from taming_event_flow_tpu_torch.utils import SectionTimer
+
+    data_dir = os.path.join(work, "data")
+    kwargs = [dict(n_events=CLI_EVENTS, res=TRAIN_RES, duration=CLI_DURATION,
+                   seed=seed * 10 + i) for i in range(CLI_SEQUENCES)]
+    paths = [os.path.join(data_dir, f"seq{i}.h5") for i in range(len(kwargs))]
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        h5py = None
+    if h5py is not None:
+        for path, kw in zip(paths, kwargs):
+            write_synthetic_h5(path, **kw)
+        loader_cls, source = H5Loader, "h5 files through H5Loader"
+    else:
+        loader_cls = memory_loader(
+            {p: synthetic_sequence(**kw) for p, kw in zip(paths, kwargs)})
+        source = "memory (no h5py) through a subclass of H5Loader"
+    print(f"train_cli: {len(paths)} sequences of {CLI_EVENTS} events "
+          f"({CLI_DURATION} s), data from {source}")
+
+    timers = []
+
+    class Timer(SectionTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    def run(prev_runid, n_epochs):
+        parser = train_cli_config(data_dir, seed)
+        parser.config["loader"]["n_epochs"] = n_epochs
+        args = argparse.Namespace(path_mlflow=work, path_cache="",
+                                  prev_runid=prev_runid)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            runid = train_flow_torch.train(args, parser, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        print(text.replace("\r", "\n").strip())
+        return runid, wall, text
+
+    def losses(runid):
+        return [v for _, v, _ in default_store().read_metric(runid, "loss")]
+
+    patched = {"H5Loader": loader_cls, "SectionTimer": Timer}
+    saved = {k: getattr(train_flow_torch, k) for k in patched}
+    for k, v in patched.items():
+        setattr(train_flow_torch, k, v)
+    try:
+        reset_launches()
+        run1, wall1, _ = run("", CLI_EPOCHS)
+        ckpt1, epoch1 = load_checkpoint(run1)
+        # the warm start resumes at the checkpoint's epoch: one more
+        run2, wall2, text2 = run(run1, epoch1 + 1)
+        launches = dict(LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            setattr(train_flow_torch, k, v)
+
+    steps = [t.counts.get("step_dispatch", 0) for t in timers]
+    loss1, loss2 = losses(run1), losses(run2)
+    print(f"train_cli: run 1 epoch losses {loss1}; warm run {loss2}")
+    check(len(loss1) == CLI_EPOCHS and len(loss2) == CLI_EPOCHS + 1,
+          "train_cli: epoch losses logged")
+    check(loss2[:CLI_EPOCHS] == loss1, "train_cli: history not replayed")
+    new = loss1 + loss2[CLI_EPOCHS:]
+    check(all(math.isfinite(v) for v in new), f"train_cli: losses {new}")
+    check(len(set(new)) == len(new), f"train_cli: losses did not change {new}")
+    check(f"Model restored from {run1}" in text2,
+          "train_cli: the warm start did not restore the model")
+    check(steps[0] >= 3 * CLI_EPOCHS and steps[1] >= 3,
+          f"train_cli: steps per run {steps}")
+
+    ckpt2, _ = load_checkpoint(run2, map_location=DEVICE)
+    adam = [int(s["step"]) for s in ckpt2["optimizer"]["state"].values()]
+    check(ckpt2["step"] == ckpt1["step"] + steps[1] and set(adam) == {
+        ckpt2["step"]}, f"train_cli: checkpoint step {ckpt2['step']}, Adam "
+          f"steps {set(adam)}, run-1 checkpoint {ckpt1['step']} + {steps[1]}")
+    check(all(v.device.type == torch.device(DEVICE).type
+              for v in ckpt2["model"].values()),
+          "train_cli: checkpoint not on the card")
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE)
+    model.load_state_dict(ckpt2["model"])
+
+    expect = {name: n * sum(steps) for name, n in TRAIN_LAUNCHES.items()}
+    check(launches == expect,
+          f"train_cli launches {launches}, expected {expect}")
+
+    for i, (t, wall) in enumerate(zip(timers, (wall1, wall2))):
+        loop = sum(t.totals.values())
+        print(f"train_cli run {i + 1}: {steps[i]} steps, loop "
+              f"{loop / steps[i] * 1e3:.3f} ms/step, train() "
+              f"{wall / steps[i] * 1e3:.3f} ms/step wall ({wall:.2f} s, set-up "
+              f"and checkpoints included)")
+
+    # the loader's host time per loss window, alone
+    loader = loader_cls(train_cli_config(data_dir, seed).config, shuffle=True)
+    n_batches, t0 = 0, time.perf_counter()
+    for _ in range(CLI_TIMED_WINDOWS):
+        stack_window([loader.next_batch() for _ in range(PASSES)])
+        n_batches += PASSES
+    ms = (time.perf_counter() - t0) * 1e3
+    loader.close()
+    ms_window = ms / CLI_TIMED_WINDOWS
+    print(f"train_cli loader: {ms_window:.3f} ms per loss window of "
+          f"{PASSES} passes ({ms / n_batches:.3f} ms per pass, stack "
+          f"included; {source})")
+    ms_step = sum(sum(t.totals.values()) for t in timers) / sum(steps) * 1e3
+    return launches, ms_step, ms_window
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1500,6 +1948,7 @@ def main(argv=None):
     gpu = gpu_line()
     print(gpu)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(json.dumps({"imports": optional_imports()}))
     set_tf32(False)
     lib = kernel_build.load()
     print(f"built {lib.path} in {lib.build_seconds:.2f} s")
@@ -1520,9 +1969,16 @@ def main(argv=None):
         rng_rect, model, N_WINDOWS, ms_pass, args.profile)
     del model
     train_launches, ms_step = train_phase(rng, args.profile)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_cli_", dir=build)
+    try:
+        cli_launches, ms_cli, ms_loader = train_cli_phase(args.seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
-             "train": train_launches}
+             "train": train_launches, "train_cli": cli_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -1550,6 +2006,8 @@ def main(argv=None):
     print(f"rectified_ms_per_pass {ms_rect:.4f} (derived on the card), "
           f"{ms_rect_host:.4f} (host-built input shipped)")
     print(f"train_ms_per_step {ms_step:.4f}")
+    print(f"train_cli_ms_per_step {ms_cli:.4f} (loop wall, B=1); loader "
+          f"{ms_loader:.4f} ms per loss window on the host")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

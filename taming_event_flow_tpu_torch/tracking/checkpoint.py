@@ -1,0 +1,72 @@
+"""Checkpoint save and restore addressed by tracking run id (counterpart of
+``taming_event_flow_tpu/tracking/checkpoint.py``).
+
+A checkpoint is one ``torch.save`` file, ``artifacts/model/checkpoint.pt``,
+holding the model's ``state_dict``, the optimizer's ``state_dict`` (the
+Adam moments and step count, which the reference loses on resume), ``step``
+and ``epoch``. The JAX package writes flax msgpack
+(``checkpoint.msgpack``) instead; the port does not read it.
+
+The port's parameter names are the reference's, so a reference
+``model.pth`` loads as it is (:func:`load_reference_torch_checkpoint`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .store import default_store
+
+CKPT_NAME = "checkpoint.pt"
+
+
+def save_checkpoint(run_id: str, model_state: Dict[str, torch.Tensor],
+                    optim_state: Optional[Dict[str, Any]] = None,
+                    step: int = 0, epoch: int = 0, store=None) -> str:
+    """Write ``(model_state, optim_state, step, epoch)`` under the run's
+    ``artifacts/model/`` (atomically: a temporary file, then a rename)."""
+    store = store or default_store()
+    path = os.path.join(store.artifact_dir(run_id, "model"), CKPT_NAME)
+    tmp = path + ".tmp"
+    torch.save({"model": model_state, "optimizer": optim_state,
+                "step": int(step), "epoch": int(epoch)}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(run_id: str, store=None, map_location="cpu"
+                    ) -> Tuple[Optional[Dict[str, Any]], int]:
+    """Read a run's checkpoint onto ``map_location``.
+
+    :return: ``(checkpoint | None, starting_epoch)``: ``None`` and 0 for an
+        unknown run or a run without a checkpoint, as the reference's
+        ``load_model`` warm-starts only when it can
+        (``utils/utils.py:9-49``).
+    """
+    store = store or default_store()
+    try:
+        run = store.get_run(run_id)
+    except (KeyError, TypeError):
+        return None, 0
+    path = os.path.join(run.info.artifact_uri, "model", CKPT_NAME)
+    if not os.path.isfile(path):
+        print(f"No model found at {run_id}")
+        return None, 0
+    ckpt = torch.load(path, map_location=map_location, weights_only=True)
+    print(f"Model restored from {run_id}")
+    return ckpt, int(ckpt.get("epoch", 0))
+
+
+def load_reference_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``model.pth`` (a pickled torch module or a
+    ``state_dict``) as a ``state_dict`` for the port's
+    :class:`~..models.RecEVFlowNet`, whose names are the reference's.
+
+    A pickled module is unpickled in full (and its package must be
+    importable): load only files you trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = obj if isinstance(obj, dict) else obj.state_dict()
+    return {k: v.detach().cpu() for k, v in state_dict.items()}

@@ -11,7 +11,7 @@ from .step import (
     run_passes,
     unpack_window,
 )
-from .window import pad_batch_events
+from .window import WindowGrouper, pad_batch_events, stack_window
 
 __all__ = [
     "TrainState",
@@ -26,4 +26,6 @@ __all__ = [
     "make_forward_fn",
     "reset_carry",
     "pad_batch_events",
+    "stack_window",
+    "WindowGrouper",
 ]

@@ -1,12 +1,39 @@
-"""Wall-clock attribution of host loops (counterpart of
-``taming_event_flow_tpu/utils/diagnostics.py:SectionTimer``)."""
+"""Observability of host loops (counterpart of
+``taming_event_flow_tpu/utils/diagnostics.py``): the run's git-diff
+snapshot and the wall-clock attribution of a loop's sections."""
 
 from __future__ import annotations
 
 import contextlib
+import os
+import subprocess
+import tempfile
 import time
+from typing import Optional
+
+from ..tracking.store import default_store
 
 _SENTINEL = object()
+
+
+def save_diff(fname: str = "git_diff.txt", run_id: Optional[str] = None):
+    """Snapshot the working tree's ``git diff`` into the active run's
+    artifacts (reference ``utils/utils.py:99-105``); an empty file where
+    git is missing or the directory is no repository."""
+    try:
+        diff = subprocess.run(
+            ["git", "diff"], capture_output=True, text=True, timeout=30,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        diff = ""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, fname)
+        with open(path, "w") as f:
+            f.write(diff)
+        try:
+            default_store().log_artifact(path, run_id=run_id)
+        except (RuntimeError, KeyError):
+            pass
 
 
 class SectionTimer:

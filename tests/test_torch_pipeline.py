@@ -5,6 +5,8 @@ imports, no silent CPU fallback)."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -283,8 +285,9 @@ def test_consume_mets_and_consumer():
 # ----------------------------------------------------------------- hygiene
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "taming_event_flow_tpu",
-              "h5py", "yaml")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "taming_event_flow_tpu")
+# optional host packages: imported only inside the functions that use them
+_FUNCTION_ONLY = ("h5py", "yaml", "cv2")
 
 
 def _port_files():
@@ -294,23 +297,81 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "train_flow_torch.py")
+
+
+def _imports(tree):
+    """``(name, at_import_time)`` of every import in ``tree``: at import
+    time unless it sits inside a function."""
+
+    def walk(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name, not in_function
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, not in_function
+            yield from walk(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+
+    return walk(tree, False)
 
 
 def test_port_imports_nothing_of_jax():
+    """No port file (the package, ``chip_smoke.py``, ``train_flow_torch.py``)
+    imports JAX or the JAX package anywhere, nor h5py, PyYAML or cv2 at
+    import time."""
     files = list(_port_files())
-    assert len(files) > 15
+    assert len(files) > 25
+    late = set()
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] not in _FORBIDDEN, (path, name)
+        for name, at_import in _imports(tree):
+            top = name.split(".")[0]
+            assert top not in _FORBIDDEN, (path, name)
+            assert not (at_import and top in _FUNCTION_ONLY), (path, name)
+            if top in _FUNCTION_ONLY:
+                late.add(top)
+    assert late == set(_FUNCTION_ONLY)  # the scan sees function bodies
+
+
+def _port_modules():
+    pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
+    out = ["train_flow_torch", "chip_smoke"]
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                parts = os.path.relpath(os.path.join(root, f),
+                                        REPO)[:-3].split(os.sep)
+                if parts[-1] == "__init__":
+                    parts = parts[:-1]
+                out.append(".".join(parts))
+    return sorted(out)
+
+
+def test_port_imports_without_optional_packages():
+    """In a process where h5py, PyYAML and cv2 cannot be imported, every
+    port module and ``train_flow_torch`` import, and the parser builds a
+    config from its defaults; nothing of JAX is loaded."""
+    modules = _port_modules()
+    assert len(modules) > 25
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('h5py', 'yaml', 'cv2'):",
+        "    sys.modules[name] = None",
+        f"for m in {modules!r}:",
+        "    importlib.import_module(m)",
+        "from taming_event_flow_tpu_torch.configs import YAMLParser",
+        "assert YAMLParser().config['loader']['batch_size'] == 1",
+        "assert not any(k.split('.')[0] in ('jax', 'taming_event_flow_tpu')",
+        "               for k in sys.modules)",
+        "print('imported', len(sys.modules))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "imported" in out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, models):
