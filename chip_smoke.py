@@ -9,7 +9,8 @@ one NVIDIA card.
    ``taming_event_flow_tpu_torch/csrc``.
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    with its time by CUDA events, on the device (the profiler's time of all
-   the call runs there) and on the host (issuing the call), the plain
+   the call runs there; CUDA-event time, with a line that says so, where
+   the profiler's traces keep coming back without it) and on the host (issuing the call), the plain
    version's, a library yardstick's and its memory bound:
    the splat and the gather at the DSEC eval path's shapes, the fused
    dual-stencil gather at the training path's (the splat backward, C=4, at
@@ -77,7 +78,27 @@ one NVIDIA card.
    must show 124 splats, 80 gathers and 116 fused gathers per step. Prints
    ms per step, the loop's ``SectionTimer`` report and the loader's host
    ms per loss window.
-8. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+8. Eval CLI phase: ``eval_flow_torch.test`` on the card, evaluating the run
+   step 7 wrote, its loader served from memory where h5py is missing.
+   (a) ``configs/eval_dsec.yml``'s values (``EVAL_DSEC_CLI``) over a
+   rectified and an unrectified synthetic sequence of 480x640 with 10 Hz
+   GT flow: ``metrics_0.yml`` holds a finite entry per sequence and
+   metric, each sequence's ``flow_bw/`` one 16-bit PNG per evaluated
+   window, every window launches the eval phase's splats and gathers, the
+   row gather exactly once on the rectified sequence and never on the
+   other (``cur_ridx`` comes from the loader through ``batch_stream``),
+   and no fused gather; ``prepare_dsec_submission.prepare`` on the tree
+   writes one ``%06d.png`` per flag. (b) One short rectified sequence in
+   float32 (TF32 off) through the CLI on the card and on the CPU: one row
+   gather per window on the card, metrics within
+   the pipeline-parity tolerance, ``flow_bw`` within one u16 lattice step
+   on at least 99.9% of pixels. (c) ``configs/eval_mvsec.yml``'s values
+   (P = 1, masked and cropped AEE, ``mask_output``) with every panel
+   stored: ``events``, ``flow``, ``iwe``, ``flow_bw``, ``flow_gt`` and
+   ``error_flow`` hold a PNG per pass, and every pass splats and gathers.
+   Prints ms per GT window of CLI wall and the CLI's ``SectionTimer``
+   reports beside the card.
+9. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -178,6 +199,47 @@ CLI_EVENTS = TRAIN_N * 25  # 8,192 events per 10 ms pass
 CLI_EPOCHS = 2  # then a warm start for one more
 CLI_TIMED_WINDOWS = 3  # loss windows of the loader timed alone
 
+# eval CLI: configs/eval_dsec.yml's values (data.path is set at run time)
+EVAL_DSEC_CLI = {
+    "data": {"mode": "gtflow", "window": 0.1, "passes_loss": PASSES,
+             "cache": False},
+    "loader": {"resolution": list(RES), "augment": [],
+               "max_num_grad_events": None, "n_events_pad": N_PAD,
+               "seed": None},
+    "metrics": {"warping": "Iterative", "name": ["FWL", "RSAT", "AEE"],
+                "inference_dtype": "bfloat16"},
+    "vis": {"enabled": False, "px": 400, "bars": True, "store": True,
+            "mask_output": False, "dynamic": True, "show": ["flow_bw"]},
+}
+# configs/eval_mvsec.yml's values; eval_time spans the synthetic sequence,
+# and every panel renders and stores with no display
+MVSEC_RES = (260, 346)
+EVAL_MVSEC_CLI = {
+    "data": {"mode": "gtflow", "window": 1, "passes_loss": 1,
+             "cache": False},
+    "loader": {"resolution": list(MVSEC_RES), "augment": [],
+               "max_num_grad_events": None, "n_events_pad": 16384,
+               "seed": None},
+    "metrics": {"warping": "Iterative", "name": ["FWL", "RSAT", "AEE"],
+                "eval_time": [0.0, 1000.0], "mask_aee": True,
+                "res_aee": [256, 256], "vertical_crop_aee": 190},
+    "vis": {"enabled": False, "px": 400, "bars": True, "store": True,
+            "mask_output": True, "dynamic": False, "show": None},
+}
+MVSEC_PANELS = ("events", "flow", "iwe", "flow_bw", "flow_gt", "error_flow")
+GT_WINDOW = 0.1  # s: DSEC's GT flow rate, 10 Hz
+EVAL_CLI_EVENTS = 40_000 * PASSES  # per GT window: ~40k events a pass
+# GT windows evaluated per sequence. A sequence of n GT frames gives n - 2
+# at P = 10: the first frame has no window before it, and the last frame's
+# tenth pass lands past it by rounding (row 2.9 + 0.1 > 3), so the loader
+# rolls over and the partial window is dropped, as in the JAX loader.
+EVAL_CLI_WINDOWS = 3
+PARITY_WINDOWS = 2  # card against CPU
+MVSEC_PASSES = 5  # P = 1, window 1: n GT frames give n - 1 passes
+MVSEC_GT_WINDOW = 0.022  # s: MVSEC outdoor_day GT at ~45 Hz
+MVSEC_EVENTS = 10_000  # per GT window (~0.45 Mev/s)
+PNG_SHARE = 0.999  # flow_bw pixels within one lattice step, card vs CPU
+
 
 def check(cond, msg):
     if not cond:
@@ -213,8 +275,8 @@ def time_ms(fn, reps=50, warmup=5):
 
 def device_ms(fn, kernel=None):
     """Device time per call of ``fn`` from a profiler trace, all its
-    kernels or those whose name holds ``kernel``
-    (``tools/bench_dma_gather.py:device_ms``)."""
+    kernels or those whose name holds ``kernel``, or CUDA-event time where
+    five traces show none (``tools/bench_dma_gather.py:device_ms``)."""
     from taming_event_flow_tpu_torch.tools import bench_dma_gather
 
     return bench_dma_gather.device_ms(fn, kernel=kernel)
@@ -639,14 +701,21 @@ def check_backward_kernels(maps4, maps2, loc, vals4, cot2):
     gather = cuda_warp.GatherBilinearFn.apply(maps2, lc)
     for tag, out, g in (("SplatBilinearFn", splat, maps4),
                         ("GatherBilinearFn", gather, cot2)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.autograd.grad(out, lc, g, retain_graph=True)
+        # a trace the profiler returns without device rows shows nothing:
+        # trace again, up to five times
+        names = []
+        for _ in range(5):
             torch.cuda.synchronize()
-        names = [a.key for a in prof.key_averages()
-                 if a.device_type == DeviceType.CUDA
-                 and not a.is_user_annotation and a.self_device_time_total]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.autograd.grad(out, lc, g, retain_graph=True)
+                torch.cuda.synchronize()
+            names = [a.key for a in prof.key_averages()
+                     if a.device_type == DeviceType.CUDA
+                     and not a.is_user_annotation
+                     and a.self_device_time_total]
+            if names:
+                break
         check(names and all("gather_fused_kernel" in n for n in names),
               f"{tag}.backward runs more than the fused gather: {names}")
         print(f"{tag}.backward (location gradient) on the device: {names}")
@@ -1739,22 +1808,51 @@ def optional_imports():
     return found
 
 
-class _MemoryFile:
-    """The part of an ``h5py.File`` that ``H5Loader`` reads in the time and
-    events modes, over a ``data.SyntheticSequence`` held in memory."""
+class _MemoryDataset:
+    """One dataset of a ``_MemoryFile``: its array, shape, dtype and
+    attrs; reading it (``ds[...]``) gives numpy, as ``h5py`` does."""
 
-    def __init__(self, seq):
-        self.datasets = seq.datasets
+    def __init__(self, data, attrs):
+        self._data = np.asarray(data)
+        self.shape, self.dtype, self.attrs = (self._data.shape,
+                                              self._data.dtype, attrs)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _MemoryFile:
+    """The part of an ``h5py.File`` (or of one of its groups, under
+    ``prefix``) that ``H5Loader`` reads, over a ``data.SyntheticSequence``
+    held in memory: the events, the file's attrs, the GT flow maps with
+    their ``timestamp_from/to`` attrs (``flow/*``), and the rectification
+    map and calibration strings of a rectified sequence."""
+
+    def __init__(self, seq, prefix=""):
+        self.seq, self.prefix = seq, prefix
         self.attrs = seq.attrs
 
     def __getitem__(self, name):
-        return self.datasets[name]
+        path = self.prefix + name
+        if path in self.seq.datasets:
+            return _MemoryDataset(self.seq.datasets[path],
+                                  self.seq.dataset_attrs.get(path, {}))
+        if name not in self:
+            raise KeyError(path)
+        return _MemoryFile(self.seq, path + "/")
 
-    def __contains__(self, group):
-        return any(k.startswith(group + "/") for k in self.datasets)
+    def __contains__(self, name):
+        path = self.prefix + name
+        return path in self.seq.datasets or any(
+            k.startswith(path + "/") for k in self.seq.datasets)
 
     def get(self, name):
-        return self.datasets.get(name)
+        return self[name] if name in self else None
+
+    def visititems(self, fn):
+        for path in sorted(self.seq.datasets):
+            if path.startswith(self.prefix):
+                fn(path[len(self.prefix):], self[path[len(self.prefix):]])
 
     def close(self):
         pass
@@ -1796,8 +1894,8 @@ def train_cli_phase(seed, work):
     width: two epochs over two synthetic sequences, then a warm start from
     that run for one more epoch. Data through ``.h5`` files and the port's
     ``H5Loader`` where h5py imports, else through ``memory_loader``.
-    Returns the launches of both runs, the loop's ms per optimizer step
-    and the loader's host ms per loss window."""
+    Returns the launches of both runs, the loop's ms per optimizer step,
+    the loader's host ms per loss window and the warm run's id."""
     import contextlib
     import io
 
@@ -1926,7 +2024,322 @@ def train_cli_phase(seed, work):
           f"{PASSES} passes ({ms / n_batches:.3f} ms per pass, stack "
           f"included; {source})")
     ms_step = sum(sum(t.totals.values()) for t in timers) / sum(steps) * 1e3
-    return launches, ms_step, ms_window
+    return launches, ms_step, ms_window, run2
+
+
+# ----------------------------------------------------------- eval CLI phase
+
+
+def eval_cli_data(work, tag, specs):
+    """Synthetic sequences (name -> ``synthetic_sequence`` kwargs) under
+    ``<work>/eval_<tag>``: ``.h5`` files for the port's ``H5Loader`` where
+    h5py imports, else the same arrays in memory (:func:`memory_loader`).
+    Returns the data directory and the loader class."""
+    from taming_event_flow_tpu_torch.data import (
+        H5Loader,
+        synthetic_sequence,
+        write_synthetic_h5,
+    )
+
+    root = os.path.join(work, f"eval_{tag}")
+    paths = {os.path.join(root, f"{name}.h5"): kw
+             for name, kw in specs.items()}
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return root, memory_loader(
+            {p: synthetic_sequence(**kw) for p, kw in paths.items()})
+    for p, kw in paths.items():
+        write_synthetic_h5(p, **kw)
+    return root, H5Loader
+
+
+def dsec_sequence(n_frames, seed, rectify=False, res=RES,
+                  events=EVAL_CLI_EVENTS, gt_window=GT_WINDOW):
+    """``synthetic_sequence`` kwargs: ``n_frames`` GT flow frames
+    ``gt_window`` apart, ``events`` events per GT window."""
+    return dict(n_events=events * n_frames, res=res,
+                duration=gt_window * n_frames, n_flow_frames=n_frames,
+                seed=seed, rectify=rectify)
+
+
+def eval_cli_run(tag, values, data_dir, loader_cls, runid, work,
+                 device=None):
+    """``eval_flow_torch.test`` on run ``runid`` with the config
+    ``values`` (no PyYAML needed) over ``data_dir``, its loader patched to
+    ``loader_cls``. Returns the results, the CLI's wall seconds, its
+    pipeline (the ``SectionTimer`` in ``tm``; ``windows``: the sequence
+    and launches of every window, taken at its boundary), the results
+    directory and the launches of the run."""
+    import contextlib
+    import io
+
+    import torch
+
+    import eval_flow_torch
+    from taming_event_flow_tpu_torch.configs import YAMLParser
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    pipes = []
+
+    class Pipe(EvalPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.windows = []
+            self._seen = {}
+            pipes.append(self)
+
+        def boundary_outputs(self, batch, meta):
+            now = dict(LAUNCHES)
+            self.windows.append((meta["sequence"], {
+                k: v - self._seen.get(k, 0) for k, v in now.items()}))
+            self._seen = now
+            return super().boundary_outputs(batch, meta)
+
+    device = device or DEVICE
+    parser = YAMLParser()
+    parser.merge(values)
+    parser.merge({"data": {"path": data_dir}})
+    path_results = os.path.join(work, f"results_{tag}")
+    args = argparse.Namespace(runid=runid, path_mlflow=work,
+                              path_results=path_results + "/")
+    patched = {"H5Loader": loader_cls, "EvalPipeline": Pipe}
+    saved = {k: getattr(eval_flow_torch, k) for k in patched}
+    for k, v in patched.items():
+        setattr(eval_flow_torch, k, v)
+    out = io.StringIO()
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            results = eval_flow_torch.test(args, parser, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            setattr(eval_flow_torch, k, v)
+    print(out.getvalue().strip())
+    return (results, wall, pipes[-1], os.path.join(path_results, runid),
+            launches)
+
+
+def read_png(path):
+    import cv2
+
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    check(img is not None, f"{path} does not read")
+    return img
+
+
+def check_metrics_file(res_dir, results, seqs, names):
+    """``metrics_0.yml``: one finite entry per sequence and metric, equal
+    to what the CLI returned."""
+    import yaml
+
+    found = sorted(f for f in os.listdir(res_dir) if f.startswith("metrics_"))
+    check(found == ["metrics_0.yml"], f"metric files {found}")
+    with open(os.path.join(res_dir, "metrics_0.yml")) as f:
+        mets = yaml.safe_load(f)
+    check(mets == results, f"metrics_0.yml {mets} != returned {results}")
+    check(sorted(mets) == sorted(names), f"metrics {sorted(mets)}")
+    for name in names:
+        check(sorted(mets[name]) == sorted(seqs),
+              f"{name}: sequences {sorted(mets[name])}, expected {seqs}")
+        for seq, v in mets[name].items():
+            check(math.isfinite(float(v)), f"{name} {seq}: {v}")
+    return mets
+
+
+def check_dsec_tree(tree, seq, n_windows, passes=PASSES, res=RES):
+    """One 16-bit ``flow_bw`` PNG per evaluated window of ``seq``, named
+    by the window's last pass, with that pass's line in ``timestamps.txt``
+    (which has one for every pass the loader gave), each decoding to
+    ``[H, W, 2]``. Returns the PNGs' paths."""
+    from taming_event_flow_tpu_torch.utils import decode_dsec_flow
+
+    d = os.path.join(tree, seq, "flow_bw")
+    names = sorted(os.listdir(d))
+    check(len(names) == n_windows,
+          f"{seq}: {len(names)} flow_bw PNGs for {n_windows} windows")
+    with open(os.path.join(tree, seq, "timestamps.txt")) as f:
+        stamps = f.read().split()
+    for i, name in enumerate(names):
+        check(name == f"{(i + 1) * passes - 1:09d}.png", f"{seq}: {name}")
+        check(int(name[:9]) < len(stamps),
+              f"{seq}: no timestamp for {name} ({len(stamps)} lines)")
+        img = read_png(os.path.join(d, name))
+        check(img.dtype == np.uint16 and img.shape == (*res, 3),
+              f"{seq}/{name}: {img.dtype} {img.shape}")
+        check(decode_dsec_flow(img).shape == (*res, 2), f"{seq}/{name}")
+    return [os.path.join(d, n) for n in names]
+
+
+def submission_check(tree, runid, seqs, work):
+    """``prepare_dsec_submission.prepare`` on the CLI's tree with a
+    synthetic ``<seq>_flag.npy`` (every window but the first) and
+    ``<seq>.txt``: one ``%06d.png`` per flag."""
+    import prepare_dsec_submission
+
+    root = os.path.join(work, "dsec_submissions")
+    dst = os.path.join(root, runid, "eval_0")
+    shutil.copytree(tree, dst)
+    expect = {}
+    for seq in seqs:
+        n = len(os.listdir(os.path.join(dst, seq, "flow_bw")))
+        flags = np.ones(n, np.int64)
+        flags[0] = 0
+        np.save(os.path.join(root, f"{seq}_flag.npy"), flags)
+        with open(os.path.join(root, f"{seq}.txt"), "w") as f:
+            f.write("# from_timestamp_us, to_timestamp_us, file_index\n")
+            for i in range(n):
+                f.write(f"{i * 100000}, {(i + 1) * 100000}, "
+                        f"{2 * i + 1:06d}\n")
+        expect[seq] = [f"{2 * i + 1:06d}.png" for i in range(int(flags.sum()))]
+    prepare_dsec_submission.prepare(argparse.Namespace(
+        runid=runid, path=root + "/", eval_id=0))
+    for seq in seqs:
+        got = sorted(os.listdir(os.path.join(dst, "submission", seq)))
+        check(got == expect[seq], f"submission {seq}: {got}")
+        for name in got:
+            img = read_png(os.path.join(dst, "submission", seq, name))
+            check(img.dtype == np.uint16, f"submission {seq}/{name}")
+    return {seq: len(v) for seq, v in expect.items()}
+
+
+def eval_cli_phase(seed, work, runid, eval_launches, gpu):
+    """The eval CLI, ``eval_flow_torch.test``, on the card, evaluating the
+    run the training-CLI phase wrote: (a) the DSEC submission protocol over
+    a rectified and an unrectified sequence, then the submission formatter
+    on its tree; (b) one short rectified sequence in float32 on the card
+    and on the CPU; (c) the MVSEC per-pass protocol with every panel stored.
+    ``eval_launches``: the eval phase's launches per window. Returns the
+    launches of the card's runs and the wall ms per GT window of (a)."""
+    t_phase = time.perf_counter()
+    all_launches = []
+
+    # (a) the DSEC submission protocol
+    frames = EVAL_CLI_WINDOWS + 2
+    specs = {"seq_rect": dsec_sequence(frames, seed * 10 + 20, rectify=True),
+             "seq_plain": dsec_sequence(frames, seed * 10 + 21)}
+    data_dir, loader_cls = eval_cli_data(work, "dsec", specs)
+    results, wall, pipe, res_dir, launches = eval_cli_run(
+        "dsec", EVAL_DSEC_CLI, data_dir, loader_cls, runid, work)
+    all_launches.append(launches)
+    names = EVAL_DSEC_CLI["metrics"]["name"]
+    check_metrics_file(res_dir, results, list(specs), names)
+    tree = os.path.join(res_dir, "results", "eval_0")
+    n_windows = len(pipe.windows)
+    per_seq = {seq: [w for s, w in pipe.windows if s == seq]
+               for seq in specs}
+    for seq, windows in per_seq.items():
+        check(len(windows) == EVAL_CLI_WINDOWS,
+              f"{seq}: {len(windows)} windows evaluated")
+        check_dsec_tree(tree, seq, len(windows))
+        rows = 1 if seq == "seq_rect" else 0
+        for i, w in enumerate(windows):
+            expect = {"splat_bilinear": eval_launches["splat_bilinear"],
+                      "gather_bilinear": eval_launches["gather_bilinear"],
+                      "gather_fused": 0, "row_gather": rows}
+            check(w == expect, f"eval_cli {seq} window {i}: launches {w}, "
+                  f"expected {expect}")
+    n_sub = submission_check(tree, runid, list(specs), work)
+    ms_window = wall / n_windows * 1e3
+    print(f"eval_cli (a) DSEC: GT windows "
+          f"{ {s: len(w) for s, w in per_seq.items()} }, metrics {results}; "
+          f"launches {launches}; submission PNGs {n_sub}")
+    print(f"eval_cli (a): {ms_window:.3f} ms per GT window of CLI wall "
+          f"({wall:.3f} s, set-up, loader and PNG writeback included; bf16 "
+          f"forward) on {gpu}")
+    print(f"eval_cli (a) on {gpu}: {pipe.tm.report()}")
+
+    # (b) card against CPU through the CLI, float32 with TF32 off
+    values = copy.deepcopy(EVAL_DSEC_CLI)
+    del values["metrics"]["inference_dtype"]
+    # rectified: the remap index comes from the loader through
+    # batch_stream, and the card's row gather is held to the CPU's plain one
+    data_dir, loader_cls = eval_cli_data(
+        work, "parity", {"seq_parity": dsec_sequence(
+            PARITY_WINDOWS + 2, seed * 10 + 22, rectify=True)})
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        res, _, p, rdir, launches = eval_cli_run(
+            f"parity_{dev}", values, data_dir, loader_cls, runid, work,
+            device=dev)
+        runs[dev] = (res, rdir, len(p.windows))
+        if dev == DEVICE:
+            all_launches.append(launches)
+            check(launches["row_gather"] == PARITY_WINDOWS,
+                  f"parity: {launches['row_gather']} row gathers for "
+                  f"{PARITY_WINDOWS} rectified windows")
+        print(f"eval_cli (b) {dev}: {time.perf_counter() - t0:.1f} s")
+    (r_card, d_card, n_card), (r_cpu, d_cpu, n_cpu) = runs[DEVICE], runs["cpu"]
+    check(n_card == n_cpu == PARITY_WINDOWS,
+          f"parity windows: card {n_card}, cpu {n_cpu}")
+    check(sorted(r_card) == sorted(r_cpu), "parity: metric names")
+    for name in r_cpu:
+        for seq, v in r_cpu[name].items():
+            a, b = float(r_card[name][seq]), float(v)
+            print(f"eval_cli (b) f32 {name} {seq}: card {a:.7f} cpu {b:.7f} "
+                  f"rel {abs(a - b) / max(abs(b), 1e-30):.2e}")
+            check(math.isclose(a, b, rel_tol=METRIC_RTOL,
+                               abs_tol=METRIC_ATOL),
+                  f"eval_cli {name} {seq}: card {a} vs cpu {b}")
+    pngs = [check_dsec_tree(os.path.join(d, "results", "eval_0"),
+                            "seq_parity", n_card) for d in (d_card, d_cpu)]
+    worst, differ, total, within = 0, 0, 0, 0
+    for a, b in zip(*pngs):
+        check(os.path.basename(a) == os.path.basename(b), f"{a} vs {b}")
+        diff = np.abs(read_png(a).astype(np.int64)
+                      - read_png(b).astype(np.int64)).max(-1)
+        worst = max(worst, int(diff.max()))
+        differ += int((diff > 0).sum())
+        within += int((diff <= 1).sum())
+        total += diff.size
+    print(f"eval_cli (b) flow_bw card vs cpu: max {worst} lattice steps, "
+          f"{differ / total:.4%} of {total} pixels differ, "
+          f"{within / total:.4%} within one step")
+    check(within / total >= PNG_SHARE,
+          f"flow_bw: {within / total:.4%} of pixels within one step")
+
+    # (c) the MVSEC per-pass protocol, every panel stored
+    data_dir, loader_cls = eval_cli_data(work, "mvsec", {
+        "seq_mvsec": dsec_sequence(MVSEC_PASSES + 1, seed * 10 + 23,
+                                   res=MVSEC_RES, events=MVSEC_EVENTS,
+                                   gt_window=MVSEC_GT_WINDOW)})
+    results, wall, pipe, res_dir, launches = eval_cli_run(
+        "mvsec", EVAL_MVSEC_CLI, data_dir, loader_cls, runid, work)
+    all_launches.append(launches)
+    check_metrics_file(res_dir, results, ["seq_mvsec"],
+                       EVAL_MVSEC_CLI["metrics"]["name"])
+    n_pass = len(pipe.windows)
+    check(n_pass == MVSEC_PASSES, f"mvsec: {n_pass} passes")
+    tree = os.path.join(res_dir, "results", "eval_0", "seq_mvsec")
+    stored = {k: len(os.listdir(os.path.join(tree, k))) for k in MVSEC_PANELS}
+    check(all(n == n_pass for n in stored.values()),
+          f"mvsec panels stored {stored} over {n_pass} passes")
+    # every pass splats and gathers: the validation update and the iwe
+    # panel (compute_pol_iwe with round_flow=False, as eval_flow.py calls
+    # it: a bilinear flow lookup, so no row gather on this unrectified
+    # sequence)
+    for _, w in pipe.windows:
+        check(w["splat_bilinear"] >= 1 and w["gather_bilinear"] >= 1
+              and w["gather_fused"] == 0 and w["row_gather"] == 0,
+              f"mvsec pass launches {w}")
+    print(f"eval_cli (c) MVSEC: {n_pass} passes, panels stored {stored}, "
+          f"metrics {results}; launches {launches}")
+    print(f"eval_cli (c): {wall / n_pass * 1e3:.3f} ms per GT window of CLI "
+          f"wall on {gpu}")
+    print(f"eval_cli (c) on {gpu}: {pipe.tm.report()}")
+
+    total_launches = {k: sum(l[k] for l in all_launches)
+                      for k in all_launches[0]}
+    print(f"eval_cli phase: {time.perf_counter() - t_phase:.1f} s (data, "
+          f"three protocols, the CPU's float32 run)")
+    return total_launches, ms_window
 
 
 def main(argv=None):
@@ -1973,12 +2386,17 @@ def main(argv=None):
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="train_cli_", dir=build)
     try:
-        cli_launches, ms_cli, ms_loader = train_cli_phase(args.seed, work)
+        cli_launches, ms_cli, ms_loader, runid = train_cli_phase(args.seed,
+                                                                 work)
+        eval_cli_launches, ms_eval_cli = eval_cli_phase(
+            args.seed, work, runid,
+            {k: v // N_WINDOWS for k, v in eval_launches.items()}, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
-             "train": train_launches, "train_cli": cli_launches}
+             "train": train_launches, "train_cli": cli_launches,
+             "eval_cli": eval_cli_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -2008,6 +2426,8 @@ def main(argv=None):
     print(f"train_ms_per_step {ms_step:.4f}")
     print(f"train_cli_ms_per_step {ms_cli:.4f} (loop wall, B=1); loader "
           f"{ms_loader:.4f} ms per loss window on the host")
+    print(f"eval_cli_ms_per_gt_window {ms_eval_cli:.4f} (CLI wall, DSEC "
+          f"protocol, bf16)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

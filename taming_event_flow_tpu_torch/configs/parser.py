@@ -110,9 +110,14 @@ class YAMLParser:
         import yaml
 
         with open(path) as f:
-            loaded = yaml.safe_load(f) or {}
-        deep_merge(self._explicit, copy.deepcopy(loaded))
-        deep_merge(self._config, loaded)
+            self.merge(yaml.safe_load(f) or {})
+
+    def merge(self, values: Dict):
+        """Merge ``values`` as if a config file held them: over the
+        defaults, and over a tracked run's params in
+        :meth:`merge_configs`."""
+        deep_merge(self._explicit, copy.deepcopy(values))
+        deep_merge(self._config, copy.deepcopy(values))
 
     @property
     def config(self) -> Dict:

@@ -4,6 +4,7 @@ from .eval import (  # noqa: F401
     EvalPipeline,
     MetricsConsumer,
     VisPolicy,
+    batch_stream,
     consume_mets,
     initialize_quant_results,
 )

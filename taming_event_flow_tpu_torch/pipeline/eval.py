@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..metrics import METRIC_REGISTRY, ValConfig, compute_aee, grow_val_state
+from ..tracking.loggers import initialize_quant_results
 from ..training import make_eval_step, make_eval_window_step
 from ..training.window import pad_batch_events
 from ..utils.device import resolve_device
@@ -60,14 +61,6 @@ class VisPolicy:
             return True
         # error_flow is derived from flow_bw + GT
         return key == "flow_bw" and "error_flow" in self.show
-
-
-def initialize_quant_results(results: Dict, filename: str, metrics) -> Dict:
-    if filename not in results:
-        results[filename] = {}
-    for metric in metrics:
-        results[filename].setdefault(metric, {"metric": 0.0, "it": 0})
-    return results
 
 
 def _to_host(mets: Dict) -> Dict:
@@ -460,3 +453,68 @@ class EvalPipeline:
             dev_mets["flow_bw"] = flow_bw
         with self.tm("mets_readback"):
             return _to_host(dev_mets)
+
+    # ----------------------------------------------------- vis readouts
+
+    @torch.inference_mode()
+    def vis_window_images(self) -> Dict[str, torch.Tensor]:
+        """The window and dynamic visualization slots the protocol asks
+        for, as tensors on the pipeline's device (the vis store copies
+        them to the host)."""
+        out = {}
+        if not self.vis.on:
+            return out
+        want, crit, vs = self.vis.want, self.criteria, self.vstate
+        num = self.passes_done
+        panels = (
+            ("events", lambda: crit.window_events(vs)),
+            ("iwe_fw", lambda: crit.window_iwe(vs, mode="forward")),
+            ("iwe_bw", lambda: crit.window_iwe(vs, mode="backward")),
+            ("flow", lambda: crit.window_flow(vs, mode="forward")),
+        )
+        if self.passes > 1 and self.vis.dynamic:
+            for name, image in panels:
+                if want(name + "_dynamic"):
+                    out[name + "_dynamic"] = image()
+        if num > 1 and num == self.passes:
+            for name, image in panels:
+                if want(name + "_window"):
+                    out[name + "_window"] = image()
+        return out
+
+
+def batch_stream(data, pipe: EvalPipeline):
+    """Produce ``(batch, meta)`` with all loader state snapshotted at
+    production time, so that a prefetch thread can run the stateful loader
+    ahead of the device (the consumer loop never touches ``data``).
+
+    ``ts_jump_reset`` is sticky on the lane until cleared; clearing it here
+    makes the flag batch-scoped, the timing of the reference evaluator's
+    consumer-side clear (reference ``eval_flow.py:75-88``).
+
+    The sequence's rectification index (``data.remap_indices()``) goes to
+    the pipeline's device once per sequence, as ``meta["remap_idx"]``.
+    Windows are stacked on the consumer (:meth:`EvalPipeline.run_window`).
+    """
+    ridx = None
+    first = True
+    while True:
+        b = data.next_batch()
+        if b["ts_jump_reset"].any():
+            data.clear_ts_jump()
+        if first or b["new_seq"].any():
+            # a lane's rectification changes only when it rolls over
+            r = data.remap_indices()
+            ridx = (None if r is None
+                    else torch.as_tensor(r, device=pipe.device))
+            first = False
+        meta = {
+            "sequence": data.seq_name,
+            "ts": data.last_proc_timestamp,
+            "end_test": data.seq_num >= len(data.files),
+            "bar_iters": data.get_iters(data.lanes[0]),
+            "remap_idx": ridx,
+        }
+        yield b, meta
+        if meta["end_test"]:
+            return

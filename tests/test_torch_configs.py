@@ -71,6 +71,16 @@ def test_merge_configs_precedence(tmp_path):
     assert cfg["loss"]["flow_scaling"] == 32
     assert cfg["model"]["final_w_scale"] == 0.01
 
+    # values merged from a dict act as the same file's
+    parser = YAMLParser()
+    values = {"data": {"mode": "gtflow", "window": 1},
+              "loader": {"resolution": [260, 346]}}
+    parser.merge(values)
+    assert parser.config == YAMLParser(str(eval_yml)).config
+    assert parser.merge_configs(run_params) == cfg
+    values["data"]["mode"] = "events"  # merged as a copy
+    assert parser.config["data"]["mode"] == "gtflow"
+
 
 def test_merge_configs_rejects_code_injection():
     with pytest.raises((ValueError, SyntaxError)):

@@ -298,6 +298,7 @@ def _port_files():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "train_flow_torch.py")
+    yield os.path.join(REPO, "eval_flow_torch.py")
 
 
 def _imports(tree):
@@ -318,9 +319,9 @@ def _imports(tree):
 
 
 def test_port_imports_nothing_of_jax():
-    """No port file (the package, ``chip_smoke.py``, ``train_flow_torch.py``)
-    imports JAX or the JAX package anywhere, nor h5py, PyYAML or cv2 at
-    import time."""
+    """No port file (the package, ``chip_smoke.py``, ``train_flow_torch.py``,
+    ``eval_flow_torch.py``) imports JAX or the JAX package anywhere, nor
+    h5py, PyYAML or cv2 at import time."""
     files = list(_port_files())
     assert len(files) > 25
     late = set()
@@ -338,7 +339,7 @@ def test_port_imports_nothing_of_jax():
 
 def _port_modules():
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
-    out = ["train_flow_torch", "chip_smoke"]
+    out = ["train_flow_torch", "eval_flow_torch", "chip_smoke"]
     for root, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
@@ -352,7 +353,7 @@ def _port_modules():
 
 def test_port_imports_without_optional_packages():
     """In a process where h5py, PyYAML and cv2 cannot be imported, every
-    port module and ``train_flow_torch`` import, and the parser builds a
+    port module and both CLIs import, and the parser builds a
     config from its defaults; nothing of JAX is loaded."""
     modules = _port_modules()
     assert len(modules) > 25
