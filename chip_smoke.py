@@ -98,7 +98,26 @@ one NVIDIA card.
    ``error_flow`` hold a PNG per pass, and every pass splats and gathers.
    Prints ms per GT window of CLI wall and the CLI's ``SectionTimer``
    reports beside the card.
-9. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+9. Registry phase: the variants of the model and loss registries at full
+   width. (a) ``make_train_step`` with the Linear loss at the training
+   phase's configuration (B = 8, 1 + 3 steps): finite, changing losses,
+   ``LINEAR_LAUNCHES`` per step; at B = 1 the step loss and the loss's
+   flow gradient on identical flows, card against CPU. (b) The DSEC
+   protocol with ``metrics.warping: Linear`` over unrectified and
+   rectified synthetic windows: finite FWL/RSAT/AEE,
+   ``LINEAR_WINDOW_LAUNCHES`` per window (and one row gather on a
+   rectified one); one window of each in float32, card against CPU. (c)
+   EVFlowNet, RecFireFlowNet and FireFlowNet at their default widths:
+   float32 flows at 480x640 card against CPU within ``FAMILY_FLOW_TOL``,
+   then each through ``train_flow_torch.train`` (one epoch at
+   ``TRAIN_CLI_CONFIG``'s values, the Iterative loss's launches per step
+   scaled by the flow scales) and ``eval_flow_torch.test`` (the DSEC
+   values over two one-window sequences: finite metrics, ``flow_bw`` PNGs,
+   the eval phase's launches per window, a recurrent carry reset at the
+   rollover). (d) ``data.voxel: 4`` through both CLIs with RecEVFlowNet:
+   a 4-channel model, no count input derived, finite losses and metrics;
+   ``events_to_voxel`` on the card against the host's grid.
+10. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -107,6 +126,7 @@ It imports nothing of JAX or the JAX package.
 """
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -239,6 +259,34 @@ MVSEC_PASSES = 5  # P = 1, window 1: n GT frames give n - 1 passes
 MVSEC_GT_WINDOW = 0.022  # s: MVSEC outdoor_day GT at ~45 Hz
 MVSEC_EVENTS = 10_000  # per GT window (~0.45 Mev/s)
 PNG_SHARE = 0.999  # flow_bw pixels within one lattice step, card vs CPU
+
+# registry phase: the Linear loss and validation, the model families, voxel
+# input. Kernel launches per Linear training step (RecEVFlowNet: 4 flow
+# scales, scales_loss 1): per scale one gather of every event's arrival
+# flow and two 4-channel IWE splats (forward, backward); in the backward a
+# fused gather per IWE splat and the arrival gather's d_maps splat
+LINEAR_LAUNCHES = {"splat_bilinear": 12, "gather_bilinear": 4,
+                   "gather_fused": 8, "row_gather": 0}
+LINEAR_STEPS = 3  # timed, after one warm-up step
+# per Linear DSEC window: one gather per pass (each event's arrival flow),
+# RSAT/FWL's two splats and one splat of the P - 1 older maps pushed to the
+# latest pass (the AEE flow); a rectified window adds its row gather
+LINEAR_WINDOW_LAUNCHES = {"splat_bilinear": 3, "gather_bilinear": PASSES,
+                          "gather_fused": 0}
+LINEAR_WINDOWS = 3  # the first one warms up
+# the families at their default widths (models/model.py, models/fire.py)
+FAMILIES = {
+    "EVFlowNet": {"name": "EVFlowNet", "base_channels": 64,
+                  "num_encoders": 4, "num_residual_blocks": 2,
+                  "final_w_scale": 0.01},
+    "RecFireFlowNet": {"name": "RecFireFlowNet", "base_channels": 32,
+                       "final_w_scale": 0.01},
+    "FireFlowNet": {"name": "FireFlowNet", "base_channels": 32,
+                    "final_w_scale": 0.01},
+}
+FAMILY_PASSES = 2  # card against CPU, float32 at 480x640
+FAMILY_FLOW_TOL = 1e-4  # max abs error / max |flow|
+VOXEL_BINS = 4  # data.voxel, the value tests/test_e2e.py sets
 
 
 def check(cond, msg):
@@ -1287,10 +1335,10 @@ def train_window(rng, batch, device=DEVICE):
             "grad_mask": torch.ones(shape + (1,), device=dev)}
 
 
-def build_trainer(batch, device):
+def build_trainer(batch, device, warping="Iterative"):
     """The training slice: full-width RecEVFlowNet (seed 0), Adam after the
-    global-norm clip, the Iterative loss; returns ``(model, step, state)``.
-    """
+    global-norm clip, the ``warping`` loss; returns ``(model, step,
+    state)``."""
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.objectives import LossConfig
     from taming_event_flow_tpu_torch.training import (
@@ -1303,7 +1351,7 @@ def build_trainer(batch, device):
     opt = build_optimizer(TRAIN_OPT, model.parameters(),
                           clip_grad=TRAIN_CLIP, device=device)
     step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS),
-                           "Iterative", flow_scaling=FLOW_SCALING,
+                           warping, flow_scaling=FLOW_SCALING,
                            res=TRAIN_RES)
     return model, step, init_train_state(model, batch, *TRAIN_RES,
                                          device=device)
@@ -1889,19 +1937,47 @@ def train_cli_config(path, seed):
     return parser
 
 
-def train_cli_phase(seed, work):
-    """The training CLI, ``train_flow_torch.train``, on the card at full
-    width: two epochs over two synthetic sequences, then a warm start from
-    that run for one more epoch. Data through ``.h5`` files and the port's
-    ``H5Loader`` where h5py imports, else through ``memory_loader``.
-    Returns the launches of both runs, the loop's ms per optimizer step,
-    the loader's host ms per loss window and the warm run's id."""
+def run_train_cli(parser, work, patched, prev_runid=""):
+    """``train_flow_torch.train`` on the card with ``parser``'s config,
+    ``train_flow_torch``'s names in ``patched`` replaced for the run.
+    Prints the run's output; returns its id, wall seconds and output."""
     import contextlib
     import io
 
     import torch
 
     import train_flow_torch
+
+    args = argparse.Namespace(path_mlflow=work, path_cache="",
+                              prev_runid=prev_runid)
+    saved = {k: getattr(train_flow_torch, k) for k in patched}
+    for k, v in patched.items():
+        setattr(train_flow_torch, k, v)
+    out = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            runid = train_flow_torch.train(args, parser, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(train_flow_torch, k, v)
+    text = out.getvalue()
+    print(text.replace("\r", "\n").strip())
+    return runid, wall, text
+
+
+def train_cli_phase(seed, work):
+    """The training CLI, ``train_flow_torch.train``, on the card at full
+    width: two epochs over two synthetic sequences, then a warm start from
+    that run for one more epoch. Data through ``.h5`` files and the port's
+    ``H5Loader`` where h5py imports, else through ``memory_loader``.
+    Returns the launches of both runs, the loop's ms per optimizer step,
+    the loader's host ms per loss window, the warm run's id, and the data
+    directory with its loader class."""
+    import torch
+
     from taming_event_flow_tpu_torch.data import (
         H5Loader,
         synthetic_sequence,
@@ -1945,35 +2021,19 @@ def train_cli_phase(seed, work):
     def run(prev_runid, n_epochs):
         parser = train_cli_config(data_dir, seed)
         parser.config["loader"]["n_epochs"] = n_epochs
-        args = argparse.Namespace(path_mlflow=work, path_cache="",
-                                  prev_runid=prev_runid)
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            runid = train_flow_torch.train(args, parser, device=DEVICE)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        text = out.getvalue()
-        print(text.replace("\r", "\n").strip())
-        return runid, wall, text
+        return run_train_cli(parser, work, {"H5Loader": loader_cls,
+                                            "SectionTimer": Timer},
+                             prev_runid)
 
     def losses(runid):
         return [v for _, v, _ in default_store().read_metric(runid, "loss")]
 
-    patched = {"H5Loader": loader_cls, "SectionTimer": Timer}
-    saved = {k: getattr(train_flow_torch, k) for k in patched}
-    for k, v in patched.items():
-        setattr(train_flow_torch, k, v)
-    try:
-        reset_launches()
-        run1, wall1, _ = run("", CLI_EPOCHS)
-        ckpt1, epoch1 = load_checkpoint(run1)
-        # the warm start resumes at the checkpoint's epoch: one more
-        run2, wall2, text2 = run(run1, epoch1 + 1)
-        launches = dict(LAUNCHES)
-    finally:
-        for k, v in saved.items():
-            setattr(train_flow_torch, k, v)
+    reset_launches()
+    run1, wall1, _ = run("", CLI_EPOCHS)
+    ckpt1, epoch1 = load_checkpoint(run1)
+    # the warm start resumes at the checkpoint's epoch: one more
+    run2, wall2, text2 = run(run1, epoch1 + 1)
+    launches = dict(LAUNCHES)
 
     steps = [t.counts.get("step_dispatch", 0) for t in timers]
     loss1, loss2 = losses(run1), losses(run2)
@@ -2024,7 +2084,7 @@ def train_cli_phase(seed, work):
           f"{PASSES} passes ({ms / n_batches:.3f} ms per pass, stack "
           f"included; {source})")
     ms_step = sum(sum(t.totals.values()) for t in timers) / sum(steps) * 1e3
-    return launches, ms_step, ms_window, run2
+    return launches, ms_step, ms_window, run2, (data_dir, loader_cls)
 
 
 # ----------------------------------------------------------- eval CLI phase
@@ -2069,7 +2129,8 @@ def eval_cli_run(tag, values, data_dir, loader_cls, runid, work,
     ``values`` (no PyYAML needed) over ``data_dir``, its loader patched to
     ``loader_cls``. Returns the results, the CLI's wall seconds, its
     pipeline (the ``SectionTimer`` in ``tm``; ``windows``: the sequence
-    and launches of every window, taken at its boundary), the results
+    and launches of every window, taken at its boundary; ``resets``: the
+    carry's absolute sum before and after each sequence start), the results
     directory and the launches of the run."""
     import contextlib
     import io
@@ -2087,8 +2148,15 @@ def eval_cli_run(tag, values, data_dir, loader_cls, runid, work,
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.windows = []
+            self.resets = []  # (carry |sum| before, after) per rollover
             self._seen = {}
             pipes.append(self)
+
+        def start_sequence(self):
+            before = sum(float(c.abs().sum()) for c in self.carry)
+            super().start_sequence()
+            self.resets.append(
+                (before, sum(float(c.abs().sum()) for c in self.carry)))
 
         def boundary_outputs(self, batch, meta):
             now = dict(LAUNCHES)
@@ -2342,6 +2410,357 @@ def eval_cli_phase(seed, work, runid, eval_launches, gpu):
     return total_launches, ms_window
 
 
+# ------------------------------------------------------------ registry phase
+
+
+def linear_train(rng):
+    """(a) The training slice with the Linear loss: 1 warm-up and
+    ``LINEAR_STEPS`` timed steps at B = 8, launches per step against
+    ``LINEAR_LAUNCHES``; then card against CPU at B = 1 (step loss, and
+    the loss's flow gradient on identical flows). Returns the launches and
+    ms per step."""
+    import torch
+
+    from taming_event_flow_tpu_torch.objectives import LossConfig, linear_loss
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.training import run_passes
+
+    model, step, state = build_trainer(TRAIN_B, DEVICE, "Linear")
+    windows = [train_window(rng, TRAIN_B) for _ in range(LINEAR_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for i, window in enumerate(windows):
+        t0 = time.perf_counter()
+        state, loss = step(state, window)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"linear step {i}: loss not finite")
+        check_grads(model, f"linear step {i}")
+        print(f"linear train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{losses[-1]:.7f}  {secs[-1] * 1e3:.2f} ms")
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {k: n * len(windows) for k, n in LINEAR_LAUNCHES.items()}
+    check(launches == expect,
+          f"linear training launches {launches}, expected {expect}")
+    check(all(a != b for a, b in zip(losses, losses[1:])),
+          f"linear: the loss did not change between steps: {losses}")
+    ms_step = float(np.mean(secs[1:])) * 1e3
+    print(f"registry (a) linear train: {ms_step:.3f} ms/step (mean of "
+          f"{LINEAR_STEPS} warm steps, B={TRAIN_B}, {TRAIN_RES[0]}x"
+          f"{TRAIN_RES[1]}, P={PASSES}, N={TRAIN_N}, f32); launches "
+          f"{launches} ({ {k: v // len(windows) for k, v in launches.items()} }"
+          f" per step); peak memory {peak / 2**30:.3f} GiB ({peak} B)")
+
+    # card against CPU at B = 1: the step's loss from the same weights, and
+    # the loss's flow gradient on identical flows
+    w_card = train_window(rng, 1)
+    w_cpu = {k: v.cpu() for k, v in w_card.items()}
+    step_loss, flows = {}, None
+    for tag, dev, w in (("card", DEVICE, w_card), ("cpu", "cpu", w_cpu)):
+        model, step, state = build_trainer(1, dev, "Linear")
+        if dev == "cpu":
+            with torch.no_grad():
+                flows = run_passes(model, state.carry, w["net_input"],
+                                   FLOW_SCALING)[0]
+        step_loss[tag] = float(step(state, w)[1])
+    a, b = step_loss["card"], step_loss["cpu"]
+    rel = abs(a - b) / abs(b)
+    print(f"registry (a) f32 linear step loss: card {a:.8f} cpu {b:.8f} rel "
+          f"{rel:.2e}")
+    check(rel <= TRAIN_LOSS_RTOL, f"linear loss: card {a} vs cpu {b}")
+    grads = {}
+    for tag, dev, w in (("card", DEVICE, w_card), ("cpu", "cpu", w_cpu)):
+        f = flows.to(dev).requires_grad_()
+        linear_loss(f, w["event_list"], w["pol_mask"], w["grad_mask"],
+                    LossConfig(**TRAIN_LOSS)).backward()
+        grads[tag] = f.grad
+    ratio = max_ratio(grads["card"], grads["cpu"])
+    print(f"registry (a) f32 linear loss flow gradient on identical flows, "
+          f"card vs cpu: max abs error / max |g| {ratio:.2e}")
+    check(ratio <= TRAIN_GRAD_TOL, f"linear loss flow gradient off by {ratio}")
+    return launches, ms_step
+
+
+def linear_validation(rng):
+    """(b) The DSEC eval protocol with ``metrics.warping: Linear`` over
+    ``LINEAR_WINDOWS`` synthetic windows, unrectified and rectified (count
+    input derived on the card through ``cur_ridx``): launches per window
+    against ``LINEAR_WINDOW_LAUNCHES``, finite metrics; then one window of
+    each in float32, card against CPU. Returns the launches and the ms per
+    window of each route."""
+    from taming_event_flow_tpu_torch.metrics import LinearValidation
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    cfg = copy.deepcopy(DSEC_CONFIG)
+    cfg["metrics"]["warping"] = "Linear"
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    routes = {"unrectified": (synthetic_windows(rng, LINEAR_WINDOWS), None),
+              "rectified": (rectified_windows(rng, LINEAR_WINDOWS, fwd,
+                                              ridx[0]), ridx)}
+    total, ms = {}, {}
+    for route, (windows, r) in routes.items():
+        pipe = EvalPipeline(cfg, model, device=DEVICE)
+        check(isinstance(pipe.criteria, LinearValidation) and pipe.windowed
+              and pipe.use_extras, "Linear DSEC config must run windowed")
+        pipe.cur_ridx = r
+        reset_launches()
+        mets, secs = run_windows(pipe, windows)
+        launches = dict(LAUNCHES)
+        expect = {k: n * len(windows)
+                  for k, n in LINEAR_WINDOW_LAUNCHES.items()}
+        expect["row_gather"] = 0 if r is None else len(windows)
+        check(launches == expect, f"linear validation {route} launches "
+              f"{launches}, expected {expect}")
+        for i, m in enumerate(mets):
+            check_metrics(m, f"linear {route} window {i}")
+            print(f"registry (b) linear {route} window {i}: "
+                  f"{secs[i] * 1e3:.2f} ms  FWL {float(m['fwl']):.6f}  RSAT "
+                  f"{float(m['rsat']):.6f}  AEE {float(m['aee']):.6f}")
+        ms[route] = float(np.mean(secs[1:])) * 1e3
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        print(f"registry (b) linear {route}: launches {launches} "
+              f"({ {k: v // len(windows) for k, v in launches.items()} } per "
+              f"window), {ms[route]:.3f} ms per warm window (bf16 forward)")
+        check_f32_card_vs_cpu(model, cfg, windows[:1], r)
+    return total, ms
+
+
+def family_forward(name, cfg, rng):
+    """A family at its default width on identical weights, float32 at
+    480x640 over ``FAMILY_PASSES`` passes with the carry handed on: the
+    card's flows against the CPU's. Returns the worst gap (max abs error
+    over max |flow|) and the card's ms per pass."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+
+    model = build_model(cfg, num_bins=2, device=DEVICE, seed=0).eval()
+    cpu = copy.deepcopy(model).cpu()
+    carry = model.init_state(1, *RES, device=DEVICE)
+    carry_cpu = cpu.init_state(1, *RES)
+    worst, secs = 0.0, []
+    with torch.inference_mode():
+        for _ in range(FAMILY_PASSES):
+            x = torch.from_numpy(rng.poisson(
+                0.07, (1, *RES, 2)).astype(np.float32))
+            t0 = time.perf_counter()
+            flow, carry = model(x.to(DEVICE), carry)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ref, carry_cpu = cpu(x, carry_cpu)
+            check(flow.shape == ref.shape and bool(torch.isfinite(flow).all()),
+                  f"{name}: flow {tuple(flow.shape)}")
+            worst = max(worst, max_ratio(flow, ref))
+    check(worst <= FAMILY_FLOW_TOL,
+          f"{name}: card vs cpu flow off by {worst:.2e} of max |flow|")
+    print(f"registry (c) {name} ({cfg}): f32 flows {tuple(flow.shape)} card "
+          f"vs cpu max abs error / max |flow| {worst:.2e} over "
+          f"{FAMILY_PASSES} passes; card {secs[-1] * 1e3:.2f} ms a pass")
+    return worst
+
+
+@contextlib.contextmanager
+def count_calls(module, name):
+    """Count the calls of ``module.name`` inside the ``with`` block; yields
+    the count as ``[n]``."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    orig = getattr(mod, name)
+    count = [0]
+
+    def counted(*a, **k):
+        count[0] += 1
+        return orig(*a, **k)
+
+    setattr(mod, name, counted)
+    try:
+        yield count
+    finally:
+        setattr(mod, name, orig)
+
+
+def registry_train_cli(tag, change, seed, work, train_data, recurrent):
+    """``train_flow_torch.train`` for one epoch at ``TRAIN_CLI_CONFIG``'s
+    values with ``change`` merged in (its ``model`` replacing the
+    config's), over the training-CLI phase's data. Checks finite losses,
+    that every carry reset left zeros and, for a ``recurrent`` model, that
+    the rollover reset a non-zero carry. Returns the run id, its launches,
+    its steps and the number of ``derive_count_input`` calls."""
+    import train_flow_torch
+    from taming_event_flow_tpu_torch.configs import deep_merge
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.tracking import default_store
+    from taming_event_flow_tpu_torch.utils import SectionTimer
+
+    data_dir, loader_cls = train_data
+    parser = train_cli_config(data_dir, seed)
+    change = copy.deepcopy(change)
+    model = change.pop("model", None)
+    deep_merge(parser.config, change)
+    if model is not None:
+        parser.config["model"] = model
+    parser.config["loader"]["n_epochs"] = 1
+    resets, timers = [], []
+    reset_carry = train_flow_torch.reset_carry
+
+    def spy_reset(carry, mask):
+        out = reset_carry(carry, mask)
+        resets.append((sum(float(c.abs().sum()) for c in carry),
+                       sum(float(c.abs().sum()) for c in out)))
+        return out
+
+    class Timer(SectionTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    reset_launches()
+    with count_calls("taming_event_flow_tpu_torch.training.step",
+                     "derive_count_input") as derived:
+        runid, wall, _ = run_train_cli(parser, work, {
+            "H5Loader": loader_cls, "SectionTimer": Timer,
+            "reset_carry": spy_reset})
+    launches = dict(LAUNCHES)
+    losses = [v for _, v, _ in default_store().read_metric(runid, "loss")]
+    steps = timers[0].counts.get("step_dispatch", 0)
+    check(len(losses) == 1 and all(math.isfinite(v) for v in losses),
+          f"{tag} train_cli: losses {losses}")
+    check(steps >= 3, f"{tag} train_cli: {steps} steps")
+    check(all(after == 0.0 for _, after in resets)
+          and any(before > 0 for before, _ in resets) == recurrent,
+          f"{tag} train_cli: carry resets (|sum| before, after) {resets}")
+    print(f"registry {tag} train_cli: run {runid}, {steps} steps, epoch loss "
+          f"{losses}, {wall:.2f} s; launches {launches}; carry resets "
+          f"(|sum| before, after) {resets}; derive_count_input calls "
+          f"{derived[0]}")
+    return runid, launches, steps, derived[0]
+
+
+def registry_eval_cli(tag, runid, values, eval_data, work, eval_launches,
+                      recurrent):
+    """``eval_flow_torch.test`` at ``EVAL_DSEC_CLI``'s values (with
+    ``values`` merged in) on run ``runid`` over the registry's two
+    one-window sequences: finite metrics per sequence, a ``flow_bw`` PNG
+    per window, per-window launches equal to ``eval_launches``, and a
+    recurrent model's carry reset from non-zero to zero at the rollover.
+    Returns the launches and the number of ``derive_count_input`` calls."""
+    from taming_event_flow_tpu_torch.configs import deep_merge
+
+    data_dir, loader_cls, seqs = eval_data
+    cfg = copy.deepcopy(EVAL_DSEC_CLI)
+    deep_merge(cfg, copy.deepcopy(values))
+    with count_calls("taming_event_flow_tpu_torch.training.step",
+                     "derive_count_input") as derived:
+        results, wall, pipe, res_dir, launches = eval_cli_run(
+            f"registry_{tag}", cfg, data_dir, loader_cls, runid, work)
+    check_metrics_file(res_dir, results, seqs, cfg["metrics"]["name"])
+    tree = os.path.join(res_dir, "results", "eval_0")
+    for seq in seqs:
+        check_dsec_tree(tree, seq, 1)
+    check(len(pipe.windows) == len(seqs),
+          f"{tag} eval_cli: {len(pipe.windows)} windows")
+    for seq, w in pipe.windows:
+        check(w == eval_launches,
+              f"{tag} eval_cli {seq}: launches {w}, expected {eval_launches}")
+    rolled = [r for r in pipe.resets if r[0] > 0]
+    check(all(after == 0.0 for _, after in pipe.resets)
+          and (bool(rolled) == recurrent),
+          f"{tag} eval_cli: carry resets (|sum| before, after) "
+          f"{pipe.resets}")
+    print(f"registry {tag} eval_cli: metrics {results}; {len(pipe.windows)} "
+          f"GT windows, {wall * 1e3 / len(pipe.windows):.3f} ms per GT "
+          f"window of CLI wall; launches {launches}; carry resets "
+          f"{pipe.resets}; derive_count_input calls {derived[0]}")
+    return launches, derived[0]
+
+
+def registry_phase(seed, work, train_data, eval_launches, gpu):
+    """The registry variants on the card at full width: (a) Linear
+    training, (b) Linear validation, (c) the EVFlowNet and Fire families
+    (card against CPU, then both CLIs), (d) voxel input through both CLIs.
+    ``eval_launches``: the eval phase's launches per window. Returns the
+    launches of every run the phase drove and its numbers."""
+    import torch
+
+    from taming_event_flow_tpu_torch.data import events_to_voxel_np
+    from taming_event_flow_tpu_torch.ops import events_to_voxel
+    from taming_event_flow_tpu_torch.tracking import load_checkpoint
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 3])
+    runs = []
+    train_launches, ms_step = linear_train(rng)
+    runs.append(train_launches)
+    val_launches, ms_window = linear_validation(rng)
+    runs.append(val_launches)
+
+    # (c) the families, then (d) voxel input, through both CLIs; the eval
+    # data: two sequences of one GT window each (a rollover between)
+    seqs = ["seq_a", "seq_b"]
+    data_dir, loader_cls = eval_cli_data(work, "registry", {
+        s: dsec_sequence(3, seed * 10 + 30 + i) for i, s in enumerate(seqs)})
+    eval_data = (data_dir, loader_cls, seqs)
+    gaps = {}
+    for name, cfg in FAMILIES.items():
+        gaps[name] = family_forward(name, cfg, rng)
+        recurrent = name.startswith("Rec")
+        runid, launches, steps, _ = registry_train_cli(
+            name, {"model": cfg}, seed, work, train_data, recurrent)
+        scales = 1 if "Fire" in name else 4
+        expect = {k: n * scales // 4 * steps
+                  for k, n in TRAIN_LAUNCHES.items()}
+        check(launches == expect,
+              f"{name} train_cli launches {launches}, expected {expect}")
+        runs.append(launches)
+        launches, _ = registry_eval_cli(name, runid, {}, eval_data, work,
+                                        eval_launches, recurrent)
+        runs.append(launches)
+
+    change = {"data": {"voxel": VOXEL_BINS}}
+    runid, launches, steps, derived = registry_train_cli(
+        "voxel", change, seed, work, train_data, True)
+    check(derived == 0, f"voxel train_cli derived the count input {derived}x")
+    check(launches == {k: n * steps for k, n in TRAIN_LAUNCHES.items()},
+          f"voxel train_cli launches {launches}")
+    runs.append(launches)
+    ckpt, _ = load_checkpoint(runid, map_location=DEVICE)
+    c_in = ckpt["model"]["arch.encoders.0.conv.conv2d.weight"].shape[1]
+    check(c_in == VOXEL_BINS, f"voxel model takes {c_in} input channels")
+    launches, derived = registry_eval_cli("voxel", runid, change, eval_data,
+                                          work, eval_launches, True)
+    check(derived == 0, f"voxel eval_cli derived the count input {derived}x")
+    runs.append(launches)
+
+    # the device twin of the loader's voxel grid, at the DSEC size
+    n = EVAL_CLI_EVENTS // PASSES
+    xs = rng.integers(0, RES[1], n).astype(np.float32)
+    ys = rng.integers(0, RES[0], n).astype(np.float32)
+    ts = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    ps = rng.choice([-1.0, 1.0], n).astype(np.float32)
+    got = events_to_voxel(*(torch.from_numpy(a).to(DEVICE)
+                            for a in (xs, ys, ts, ps)), VOXEL_BINS, RES)
+    ref = events_to_voxel_np(xs, ys, ts, ps, VOXEL_BINS, RES)
+    err = float(np.abs(got.cpu().numpy() - ref).max())
+    check(err <= KERNEL_ATOL, f"events_to_voxel card vs host {err}")
+    print(f"registry (d) voxel: {c_in} input channels; events_to_voxel on "
+          f"the card vs the host grid at {RES[0]}x{RES[1]}, {n} events: max "
+          f"abs err {err:.2e}")
+
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"registry phase: {time.perf_counter() - t_phase:.1f} s on {gpu}; "
+          f"launches {total}; family flow gaps {gaps}")
+    return total, ms_step, ms_window
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2386,17 +2805,19 @@ def main(argv=None):
     os.makedirs(build, exist_ok=True)
     work = tempfile.mkdtemp(prefix="train_cli_", dir=build)
     try:
-        cli_launches, ms_cli, ms_loader, runid = train_cli_phase(args.seed,
-                                                                 work)
+        cli_launches, ms_cli, ms_loader, runid, train_data = \
+            train_cli_phase(args.seed, work)
+        per_window = {k: v // N_WINDOWS for k, v in eval_launches.items()}
         eval_cli_launches, ms_eval_cli = eval_cli_phase(
-            args.seed, work, runid,
-            {k: v // N_WINDOWS for k, v in eval_launches.items()}, gpu)
+            args.seed, work, runid, per_window, gpu)
+        registry_launches, ms_linear, ms_linear_window = registry_phase(
+            args.seed, work, train_data, per_window, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
              "train": train_launches, "train_cli": cli_launches,
-             "eval_cli": eval_cli_launches}
+             "eval_cli": eval_cli_launches, "registry": registry_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -2428,6 +2849,8 @@ def main(argv=None):
           f"{ms_loader:.4f} ms per loss window on the host")
     print(f"eval_cli_ms_per_gt_window {ms_eval_cli:.4f} (CLI wall, DSEC "
           f"protocol, bf16)")
+    print(f"linear_train_ms_per_step {ms_linear:.4f} (B={TRAIN_B}, f32); "
+          f"linear_window_ms {ms_linear_window} (DSEC, bf16)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

@@ -6,11 +6,13 @@
                               [--device cuda|cpu]
 
 It rebuilds the training config from the tracked run, streams GT-aligned
-windows at batch 1, runs the recurrent model and the Iterative validation,
-and at every ``passes_loss`` boundary computes FWL, RSAT and AEE (on the
-accumulated backward flow, the DSEC submission quantity). It writes what
-``eval_flow.py`` writes: ``<path_results>/<runid>/eval_<id>.yml``,
-``metrics_<id>.yml`` with the per-sequence averages, and the image tree
+windows at batch 1, runs the run's model (any of the registry's four, on
+count or voxel inputs) and the Iterative or Linear validation
+(``metrics.warping``), and at every ``passes_loss`` boundary computes FWL,
+RSAT and AEE (on the window's backward flow, the DSEC submission
+quantity). It writes what ``eval_flow.py`` writes:
+``<path_results>/<runid>/eval_<id>.yml``, ``metrics_<id>.yml`` with the
+per-sequence averages, and the image tree
 ``results/eval_<id>/<sequence>/<panel>/%09d.png`` with ``timestamps.txt``,
 which ``prepare_dsec_submission.py`` turns into a DSEC-Flow submission.
 The weights come from the run's ``artifacts/model/checkpoint.pt``. One

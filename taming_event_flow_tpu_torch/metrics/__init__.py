@@ -1,6 +1,7 @@
 from .validation import (
     METRIC_REGISTRY,
     IterativeValidation,
+    LinearValidation,
     ValConfig,
     ValState,
     compute_aee,
@@ -14,6 +15,7 @@ from .validation import (
 __all__ = [
     "METRIC_REGISTRY",
     "IterativeValidation",
+    "LinearValidation",
     "ValConfig",
     "ValState",
     "compute_aee",

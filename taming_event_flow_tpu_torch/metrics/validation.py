@@ -1,14 +1,14 @@
 """Validation metrics: FWL / RSAT / AEE and the incremental warp state.
 
 The PyTorch counterpart of ``taming_event_flow_tpu/metrics/validation.py``
-(Iterative scheme). The state keeps the JAX package's slot-per-pass layout
-(``[P, ...]`` leading axis, zero-masked empty slots), but PyTorch runs
-eagerly, so the port updates it in place instead of returning a fresh copy:
-the slot buffers are the largest arrays of the eval path (104 MB at DSEC
-480x640, P=10, N=65,536, computed from the shapes) and copying them every
-pass would double the memory traffic. ``pass_idx`` is a host integer: the
-pipeline knows the pass count anyway, and a device scalar would cost a
-synchronise per pass.
+(the Iterative and the Linear schemes). The state keeps the JAX package's
+slot-per-pass layout (``[P, ...]`` leading axis, zero-masked empty slots),
+but PyTorch runs eagerly, so the port updates it in place instead of
+returning a fresh copy: the slot buffers are the largest arrays of the eval
+path (104 MB at DSEC 480x640, P=10, N=65,536, computed from the shapes) and
+copying them every pass would double the memory traffic. ``pass_idx`` is a
+host integer: the pipeline knows the pass count anyway, and a device scalar
+would cost a synchronise per pass.
 
 All state tensors are made and changed under ``torch.inference_mode()``.
 """
@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.warp import (
+    event_propagation,
     get_event_flow,
     inside_mask,
     iwe_from_events,
@@ -54,6 +55,7 @@ def forward_prop_flow_once(flow_map, res, dt: float = 1.0):
     then a weight-normalised read (reference ``loss/flow_val.py:43-74``).
 
     :param flow_map: ``[B, H, W, 2]`` (x, y).
+    :param dt: the steps, a number or a ``[B, 1, 1]`` tensor of one per map.
     :return: ``[B, H, W, 2]`` forward-propagated flow map.
     """
     b = flow_map.shape[0]
@@ -325,6 +327,88 @@ class IterativeValidation:
                                 self._num_passes(state), self.cfg.res)
 
 
+class LinearValidation(IterativeValidation):
+    """Linear validation scheme (reference ``loss/flow_val.py:317-416``).
+
+    Each event samples its arrival pass's flow once (one gather per pass);
+    the warp to ``t = pass_idx`` happens in the window accessors and
+    metrics (RSAT and FWL through :meth:`_window_args`). It keeps the slot state of :class:`IterativeValidation`, with
+    ``fw_loc`` holding each event's *flow* in place of a warped location;
+    the Iterative-only slots (``fw_ts``, ``fw_mask``, ``bw_*``,
+    ``fw_prop_flow``, the accumulated grid warp) stay untouched.
+    """
+
+    @torch.inference_mode()
+    def update(self, state: ValState, flow, event_list, pol_mask,
+               event_mask, n_active: Optional[int] = None) -> ValState:
+        """Ingest one pass, in place. ``n_active`` is taken for the
+        interface's sake: the update touches only the new slot."""
+        p_cur = state.pass_idx
+        ts = event_list[..., 0:1] + float(p_cur)
+        if self.cfg.round_ts:
+            # unmasked min, as in IterativeValidation.update
+            ts = (ts.min() + 0.5).expand(ts.shape)
+        loc = event_list[..., 1:3]
+        for buf, val in ((state.event_ts, ts), (state.event_loc, loc),
+                         (state.pol_mask, pol_mask),
+                         (state.flow_maps, flow),
+                         (state.event_mask_maps, event_mask),
+                         (state.fw_loc, get_event_flow(flow, loc))):
+            buf[p_cur] = val
+        state.pass_idx = p_cur + 1
+        return state
+
+    def _fw_events(self, state):
+        """Every stored event warped to ``t = pass_idx`` with its own flow:
+        ``(warped [B, P*N, 2], loc, pol_mask)``."""
+        loc = _flat(state.event_loc)
+        warped = event_propagation(_flat(state.event_ts), loc,
+                                   _flat(state.fw_loc),
+                                   float(state.pass_idx))
+        return warped, loc, _flat(state.pol_mask)
+
+    @torch.inference_mode()
+    def window_iwe(self, state: ValState, mode: str = "forward",
+                   round_idx: bool = False):
+        """The forward IWE, whatever ``mode`` says: the reference's Linear
+        ``window_iwe`` ignores it (``flow_val.py:393-400``), so the
+        ``iwe_bw_*`` panels show the forward IWE too."""
+        fw, _, mask = self._fw_events(state)
+        return iwe_from_events(fw, mask, self.cfg.res, round_idx=round_idx)
+
+    @torch.inference_mode()
+    def window_flow(self, state: ValState, mode: Optional[str] = None,
+                    mask: bool = False):
+        """Every older map pushed forward to the latest pass with one
+        long-range warp of ``dt = latest - t`` (one splat for them all),
+        then the per-pixel non-zero mean (reference ``flow_val.py:
+        369-391``). ``mode`` is ignored, as in the reference."""
+        maps = state.flow_maps
+        latest = state.pass_idx - 1
+        if latest > 0:
+            p, b, h, w, _ = maps.shape
+            old = maps[:latest]
+            dt = torch.arange(latest, 0, -1, dtype=maps.dtype,
+                              device=maps.device).repeat_interleave(b)
+            warped = forward_prop_flow_once(
+                old.reshape(-1, h, w, 2), self.cfg.res,
+                dt.view(-1, 1, 1)).reshape(old.shape)
+            maps = torch.cat([warped, maps[latest:]])
+        nonzero = ((maps[..., 0:1] != 0) | (maps[..., 1:2] != 0)).to(
+            maps.dtype)
+        out = maps.sum(0) / (nonzero.sum(0) + 1e-9)
+        if mask:
+            out = out * (state.event_mask_maps.sum(0) > 0).to(out.dtype)
+        return out
+
+    def _window_args(self, state):
+        # the metrics' event sets: the lazily warped events and the
+        # originals, with the flattened polarity mask for both (as the JAX
+        # class)
+        fw, loc, pol = self._fw_events(state)
+        return fw, loc, pol, pol
+
+
 def grow_val_state(state: ValState, n_new: int) -> ValState:
     """Widen the event axis of the slot state (zero padding) so a larger
     event bucket can be ingested without losing accumulated passes."""
@@ -427,4 +511,7 @@ def compute_aee(pred, gt, event_mask=None, res_aee=None,
     return (error * vf).sum() / (vf.sum() + 1e-9)
 
 
-METRIC_REGISTRY = {"Iterative": IterativeValidation}
+METRIC_REGISTRY = {
+    "Iterative": IterativeValidation,
+    "Linear": LinearValidation,
+}

@@ -1,14 +1,16 @@
-"""RecEVFlowNet: the PyTorch counterpart of
-``taming_event_flow_tpu/models/model.py``.
+"""The model registry: the PyTorch counterpart of
+``taming_event_flow_tpu/models/model.py`` (RecEVFlowNet, EVFlowNet and, from
+:mod:`.fire`, the FireFlowNet family, built by name in :func:`build_model`).
 
 Public tensors keep the JAX package's layout: the input is NHWC
 ``[B, H, W, C]`` and the flows come back ``[S, B, H, W, 2]`` in (x, y)
-order, finest scale last. The network runs NCHW inside, and its recurrent
-carry is a tuple of NCHW maps (:meth:`RecEVFlowNet.init_state`).
+order, finest scale last. The networks run NCHW inside, and a recurrent
+carry is a tuple of NCHW maps (``()`` for a stateless model).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -17,7 +19,8 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from .blocks import init_weights
-from .unet import MultiResUNetRecurrent
+from .fire import FireFlowNet, RecFireFlowNet
+from .unet import MultiResUNet, MultiResUNetRecurrent
 
 
 def pad_to_multiple(x, min_size: int = 16):
@@ -37,12 +40,28 @@ def unpad(x, pads: Tuple[int, int]):
     return x[:, ph:, pw:, :]
 
 
+def _upsampled(preds, num_encoders: int, padded: Tuple[int, int], pads):
+    """Each scale's prediction upsampled to the padded input size
+    (``jax.image.resize(method="bilinear")``'s half-pixel centres), scaled
+    by ``2 ** (num_encoders - i - 1)`` and unpadded: ``[S, B, H, W, 2]``."""
+    flows = []
+    for i, flow in enumerate(preds):
+        scale = 2 ** (num_encoders - i - 1)
+        if flow.shape[2:] != padded:
+            flow = F.interpolate(flow, size=padded, mode="bilinear",
+                                 align_corners=False)
+        flows.append(unpad((scale * flow).permute(0, 2, 3, 1), pads))
+    return torch.stack(flows, dim=0)
+
+
 class RecEVFlowNet(nn.Module):
     """Recurrent EV-FlowNet (reference ``models/model.py:6-85``).
 
     ``forward(x, state) -> (flows, new_state)``; flow values are in the final
     activation's range, callers apply ``flow_scaling``.
     """
+
+    arch_cls = MultiResUNetRecurrent
 
     def __init__(self, num_bins: int = 2, base_channels: int = 64,
                  num_encoders: int = 4, num_residual_blocks: int = 2,
@@ -54,7 +73,7 @@ class RecEVFlowNet(nn.Module):
         super().__init__()
         self.num_encoders = num_encoders
         self.min_size = min_size
-        self.arch = MultiResUNetRecurrent(
+        self.arch = self.arch_cls(
             num_bins=num_bins, base_channels=base_channels,
             num_encoders=num_encoders,
             num_residual_blocks=num_residual_blocks,
@@ -66,17 +85,10 @@ class RecEVFlowNet(nn.Module):
 
     def forward(self, x, state):
         x, pads = pad_to_multiple(x, self.min_size)
-        hp, wp = x.shape[1], x.shape[2]
         preds, new_state = self.arch(
             x.permute(0, 3, 1, 2).contiguous(), state)
-        flows = []
-        for i, flow in enumerate(preds):
-            scale = 2 ** (self.num_encoders - i - 1)
-            if flow.shape[2:] != (hp, wp):
-                flow = F.interpolate(flow, size=(hp, wp), mode="bilinear",
-                                     align_corners=False)
-            flows.append(unpad((scale * flow).permute(0, 2, 3, 1), pads))
-        return torch.stack(flows, dim=0), new_state
+        return _upsampled(preds, self.num_encoders, x.shape[1:3],
+                          pads), new_state
 
     def init_state(self, batch: int, height: int, width: int,
                    dtype=torch.float32, device=None):
@@ -87,30 +99,52 @@ class RecEVFlowNet(nn.Module):
                                     device)
 
 
-# config keys that map onto model arguments (reference model kwargs)
-_FIELD_KEYS = {
-    "base_channels", "num_encoders", "num_residual_blocks",
-    "num_output_channels", "skip_type", "norm", "use_upsample_conv",
-    "kernel_size", "channel_multiplier", "final_activation",
-    "final_w_scale", "min_size",
+class EVFlowNet(RecEVFlowNet):
+    """Stateless EV-FlowNet (``taming_event_flow_tpu/models/model.py:
+    EVFlowNet``): the same padding, decoder and upsampling around
+    :class:`~.unet.MultiResUNet`. Its carry is ``()``."""
+
+    arch_cls = MultiResUNet
+
+    def forward(self, x, state=()):
+        x, pads = pad_to_multiple(x, self.min_size)
+        preds = self.arch(x.permute(0, 3, 1, 2).contiguous())
+        return _upsampled(preds, self.num_encoders, x.shape[1:3], pads), ()
+
+    def init_state(self, batch: int, height: int, width: int,
+                   dtype=torch.float32, device=None):
+        return ()
+
+
+_MODEL_REGISTRY = {
+    "RecEVFlowNet": RecEVFlowNet,
+    "EVFlowNet": EVFlowNet,
+    "RecFireFlowNet": RecFireFlowNet,
+    "FireFlowNet": FireFlowNet,
 }
 
 
 def build_model(model_config: Dict[str, Any], num_bins: int = 2,
-                device="cuda", seed: int = 0) -> RecEVFlowNet:
-    """Build a model from a config dict, with weights drawn from ``seed``,
-    on ``device`` (the card unless the caller asks for the CPU)."""
+                device="cuda", seed: int = 0) -> nn.Module:
+    """Build the model ``model_config["name"]`` names (default
+    ``RecEVFlowNet``) from a config dict, with weights drawn from ``seed``,
+    on ``device`` (the card unless the caller asks for the CPU). As in the
+    JAX package, the config keys a model does not take are ignored.
+
+    :raises ValueError: for a name outside the registry.
+    """
     dev = resolve_device(device)
     name = model_config.get("name", "RecEVFlowNet")
-    if name != "RecEVFlowNet":
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; see ROADMAP.md "
-            "(registry variants)")
+    if name not in _MODEL_REGISTRY:
+        raise ValueError(f"Unknown model: {name!r}")
     if model_config.get("compute_dtype"):
         raise NotImplementedError(
-            "model.compute_dtype is not ported yet; the eval path's bf16 "
-            "forward is metrics.inference_dtype")
-    kwargs = {k: v for k, v in model_config.items() if k in _FIELD_KEYS}
-    model = RecEVFlowNet(num_bins=num_bins, **kwargs)
+            "model.compute_dtype is not ported yet (ROADMAP.md); the eval "
+            "path's bf16 forward is metrics.inference_dtype")
+    cls = _MODEL_REGISTRY[name]
+    takes = inspect.signature(cls.__init__).parameters
+    kwargs = {k: v for k, v in model_config.items() if k in takes
+              and k != "num_bins"}
+    model = cls(num_bins=num_bins, **kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev)

@@ -1,15 +1,20 @@
-"""JAX (Flax) parameters -> the port's ``state_dict``.
+"""JAX (Flax) parameters -> the port's ``state_dict``, for the four model
+families of the registry.
 
-The inverse of ``taming_event_flow_tpu/models/port.py:
-torch_state_dict_to_flax``: the port's modules carry the reference torch
-names, so the Flax tree maps back name for name, and conv kernels go from
-Flax ``[kh, kw, in, out]`` to torch ``[out, in, kh, kw]``::
+For RecEVFlowNet this is the inverse of ``taming_event_flow_tpu/models/
+port.py:torch_state_dict_to_flax``: the port's modules carry the reference
+torch names, so the Flax tree maps back name for name; EVFlowNet and the
+Fire models follow the same rule. Conv kernels go from Flax ``[kh, kw, in,
+out]`` to torch ``[out, in, kh, kw]``::
 
   arch/encoder_<i>/conv/Conv_0            -> arch.encoders.<i>.conv.conv2d
   arch/encoder_<i>/recurrent_block/<gate> -> arch.encoders.<i>.recurrent_block.<gate>
+  arch/encoder_<i>/Conv_0 (EVFlowNet)     -> arch.encoders.<i>.conv2d
   arch/resblock_<j>/conv<k>               -> arch.resblocks.<j>.conv<k>
   arch/decoder_<i>/conv/Conv_0            -> arch.decoders.<i>.conv2d
   arch/pred_<i>/Conv_0                    -> arch.preds.<i>.conv2d
+  <head|conv1|conv2|conv3|pred>/Conv_0    -> <name>.conv2d        (Fire)
+  <gru1|gru2>/<gate>                      -> <name>.<gate>         (Fire)
 """
 
 from __future__ import annotations
@@ -26,11 +31,15 @@ _PATTERNS = [
     (re.compile(r"^arch/encoder_(\d+)/recurrent_block/"
                 r"(reset_gate|update_gate|out_gate)$"),
      r"arch.encoders.\1.recurrent_block.\2"),
+    (re.compile(r"^arch/encoder_(\d+)/Conv_0$"), r"arch.encoders.\1.conv2d"),
     (re.compile(r"^arch/resblock_(\d+)/(conv1|conv2)$"),
      r"arch.resblocks.\1.\2"),
     (re.compile(r"^arch/decoder_(\d+)/conv/Conv_0$"),
      r"arch.decoders.\1.conv2d"),
     (re.compile(r"^arch/pred_(\d+)/Conv_0$"), r"arch.preds.\1.conv2d"),
+    (re.compile(r"^(head|conv1|conv2|conv3|pred)/Conv_0$"), r"\1.conv2d"),
+    (re.compile(r"^(gru1|gru2)/(reset_gate|update_gate|out_gate)$"),
+     r"\1.\2"),
 ]
 
 
@@ -43,8 +52,9 @@ def _leaves(tree: Mapping, prefix=()):
 
 
 def flax_params_to_state_dict(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert a RecEVFlowNet Flax ``params`` tree (numpy leaves) into a
-    ``state_dict`` for :class:`~.model.RecEVFlowNet`.
+    """Convert the Flax ``params`` tree (numpy leaves) of a registry model
+    (RecEVFlowNet, EVFlowNet, RecFireFlowNet, FireFlowNet) into a
+    ``state_dict`` for the port's model of the same name.
 
     :raises KeyError: on a parameter path the port has no module for.
     """

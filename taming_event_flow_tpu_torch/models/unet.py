@@ -1,5 +1,6 @@
-"""Recurrent multi-resolution UNet (NCHW inside): the PyTorch counterpart of
-``taming_event_flow_tpu/models/unet.py:MultiResUNetRecurrent``.
+"""Multi-resolution UNets (NCHW inside): the PyTorch counterpart of
+``taming_event_flow_tpu/models/unet.py`` (``MultiResUNetRecurrent`` and the
+stateless ``MultiResUNet``).
 
 The recurrent state is an explicit tuple of per-encoder hidden maps, NCHW
 ``[B, C_i, h_i, w_i]`` (the JAX carry holds the same maps NHWC).
@@ -33,14 +34,13 @@ def _crop_to(x, y):
     return x
 
 
-class MultiResUNetRecurrent(nn.Module):
-    """Recurrent multi-res UNet (reference ``arch.py:197-242``).
+class _MultiResUNet(nn.Module):
+    """The two UNets' shared body (reference ``arch.py:6-195``):
+    ``num_encoders`` strided encoders (``encoder`` builds each), the
+    residual bottleneck and the multi-res decoder, whose previous-scale
+    prediction is concatenated into the next decoder's input."""
 
-    ``forward(x, state) -> (predictions, new_state)``: ``predictions`` is a
-    coarse-to-fine list of float32 ``[B, out, h_i, w_i]`` maps.
-    """
-
-    def __init__(self, num_bins: int = 2, base_channels: int = 64,
+    def __init__(self, encoder, num_bins: int = 2, base_channels: int = 64,
                  num_encoders: int = 4, num_residual_blocks: int = 2,
                  num_output_channels: int = 2, skip_type: str = "sum",
                  norm=None, use_upsample_conv: bool = True,
@@ -65,9 +65,9 @@ class MultiResUNetRecurrent(nn.Module):
         self.encoders = nn.ModuleList()
         cin = num_bins
         for out_ch in outs:
-            self.encoders.append(RecurrentConvLayer(
+            self.encoders.append(encoder(
                 cin, out_ch, kernel_size, stride=encoder_stride,
-                activation_ff=ff_act, norm=norm))
+                activation=ff_act, norm=norm))
             cin = out_ch
         self.resblocks = nn.ModuleList(
             ResidualBlock(outs[-1], activation=ff_act, norm=norm)
@@ -87,12 +87,7 @@ class MultiResUNetRecurrent(nn.Module):
                 w_scale=final_w_scale))
             cin = out_ch
 
-    def forward(self, x, state):
-        blocks, new_state = [], []
-        for enc, h in zip(self.encoders, state):
-            x, h = enc(x, h)
-            blocks.append(x)
-            new_state.append(h)
+    def _decode(self, x, blocks):
         for res in self.resblocks:
             x = res(x)
         predictions = []
@@ -108,7 +103,32 @@ class MultiResUNetRecurrent(nn.Module):
             # predictions stay in the compute dtype inside the loop and
             # leave as float32, as in the JAX package
             predictions.append(pred(x))
-        return [p.float() for p in predictions], tuple(new_state)
+        return [p.float() for p in predictions]
+
+
+def _recurrent_encoder(cin, cout, kernel_size, stride, activation, norm):
+    return RecurrentConvLayer(cin, cout, kernel_size, stride=stride,
+                              activation_ff=activation, norm=norm)
+
+
+class MultiResUNetRecurrent(_MultiResUNet):
+    """Recurrent multi-res UNet (reference ``arch.py:197-242``): each
+    encoder is a strided conv and a ConvGRU.
+
+    ``forward(x, state) -> (predictions, new_state)``: ``predictions`` is a
+    coarse-to-fine list of float32 ``[B, out, h_i, w_i]`` maps.
+    """
+
+    def __init__(self, **kwargs):
+        super().__init__(_recurrent_encoder, **kwargs)
+
+    def forward(self, x, state):
+        blocks, new_state = [], []
+        for enc, h in zip(self.encoders, state):
+            x, h = enc(x, h)
+            blocks.append(x)
+            new_state.append(h)
+        return self._decode(x, blocks), tuple(new_state)
 
     def init_state(self, batch: int, height: int, width: int,
                    dtype=torch.float32, device=None) -> Tuple:
@@ -122,3 +142,19 @@ class MultiResUNetRecurrent(nn.Module):
             state.append(torch.zeros(batch, out_ch, h, w, dtype=dtype,
                                      device=device))
         return tuple(state)
+
+
+class MultiResUNet(_MultiResUNet):
+    """Stateless multi-res UNet (``taming_event_flow_tpu/models/unet.py:
+    MultiResUNet``): each encoder is one strided conv, the decode path is
+    the recurrent one's. ``forward(x) -> predictions``."""
+
+    def __init__(self, **kwargs):
+        super().__init__(ConvLayer, **kwargs)
+
+    def forward(self, x):
+        blocks = []
+        for enc in self.encoders:
+            x = enc(x)
+            blocks.append(x)
+        return self._decode(x, blocks)

@@ -7,14 +7,7 @@ from .base import (
     iwe_with_ts,
 )
 from .iterative import iterative_loss, warp_table_triangular
-
-
-def linear_loss(*args, **kwargs):
-    """The Linear loss is not ported yet (ROADMAP.md, registry variants)."""
-    raise NotImplementedError(
-        "the Linear loss is not ported yet; see ROADMAP.md (registry "
-        "variants)")
-
+from .linear import linear_loss
 
 LOSS_REGISTRY = {
     "Iterative": iterative_loss,

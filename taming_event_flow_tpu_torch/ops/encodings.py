@@ -1,6 +1,7 @@
 """Event -> image encodings: the PyTorch counterpart of
-``taming_event_flow_tpu/ops/encodings.py`` (plain ``index_add_``; the
-rectification remap of the count input is the row gather kernel).
+``taming_event_flow_tpu/ops/encodings.py`` (plain ``index_add_``, where the
+JAX package has XLA's scatter; the rectification remap of the count input
+is the row gather kernel).
 """
 
 from __future__ import annotations
@@ -35,6 +36,31 @@ def events_to_channels(xs, ys, ps, sensor_size: Tuple[int, int], valid=None):
     return torch.stack(
         [events_to_image(xs, ys, pos, sensor_size, valid),
          events_to_image(xs, ys, neg, sensor_size, valid)], dim=-1)
+
+
+def events_to_voxel(xs, ys, ts, ps, num_bins: int,
+                    sensor_size: Tuple[int, int], valid=None):
+    """Voxel grid ``[H, W, num_bins]`` by temporal bilinear interpolation:
+    event ``e`` adds ``p_e * max(0, 1 - |t_e * (num_bins - 1) - b|)`` to bin
+    ``b`` at its pixel (reference ``dataloader/encodings.py:32-56``), all
+    bins in one ``index_add_``.
+
+    :param xs, ys: ``[N]`` integer-valued coordinates (truncated, clipped).
+    :param ts: ``[N]`` timestamps normalised to ``[0, 1]``.
+    :param ps: ``[N]`` values; ``valid`` an optional ``[N]`` mask.
+    """
+    h, w = sensor_size
+    bins = torch.arange(num_bins, dtype=ts.dtype, device=ts.device)
+    weights = torch.clamp(
+        1.0 - torch.abs(ts[:, None] * (num_bins - 1) - bins), min=0.0)
+    vals = ps[:, None] * weights
+    if valid is not None:
+        vals = vals * valid.to(vals.dtype)[:, None]
+    xi = xs.to(torch.int64).clamp(0, w - 1)
+    yi = ys.to(torch.int64).clamp(0, h - 1)
+    img = torch.zeros(h * w, num_bins, dtype=vals.dtype, device=vals.device)
+    img.index_add_(0, yi * w + xi, vals)
+    return img.reshape(h, w, num_bins)
 
 
 def derive_count_input(event_list, res: Tuple[int, int], raw_xy=None,

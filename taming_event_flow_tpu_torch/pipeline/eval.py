@@ -1,9 +1,10 @@
 """The eval pipeline: the PyTorch counterpart of
 ``taming_event_flow_tpu/pipeline/eval.py`` on one device.
 
-It streams GT-aligned windows at batch 1, runs the recurrent model, feeds
-the Iterative validation state and, at every ``passes_loss`` boundary,
-computes AEE on the accumulated backward flow (the DSEC submission
+It streams GT-aligned windows at batch 1, runs the model (any of the
+registry's four; a stateless one carries ``()``), feeds the Iterative or
+Linear validation state (``metrics.warping``) and, at every ``passes_loss``
+boundary, computes AEE on the window's backward flow (the DSEC submission
 quantity), RSAT and FWL (reference ``eval_flow.py:16-207``).
 
 Left out against the JAX pipeline (queued in ROADMAP.md as the packed wire
@@ -147,7 +148,8 @@ class EvalPipeline:
     """Owns the eval steps and the loop's mutable device state.
 
     :param config: the merged eval config (``configs/eval_*.yml`` layout).
-    :param model: a :class:`~..models.RecEVFlowNet` with its weights.
+    :param model: a model of the registry (``models.build_model``) with its
+        weights.
     :param device: the card unless the caller asks for the CPU; raises when
         no card is found.
     """
@@ -165,11 +167,8 @@ class EvalPipeline:
         self.voxel = config["data"].get("voxel")
         self.gtflow_mode = config["data"]["mode"] == "gtflow"
 
-        warping = self.metrics_cfg.get("warping", "Iterative")
-        if warping not in METRIC_REGISTRY:
-            raise NotImplementedError(
-                f"{warping} validation is not ported yet (ROADMAP.md)")
-        self.val_cls = METRIC_REGISTRY[warping]
+        self.val_cls = METRIC_REGISTRY[
+            self.metrics_cfg.get("warping", "Iterative")]
         want = self.vis.want
         self.val_cfg = ValConfig(
             res=self.res, passes=self.passes,

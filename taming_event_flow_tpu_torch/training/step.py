@@ -8,11 +8,12 @@ each call: the train step updates both in place and returns a
 :class:`TrainState` of what does travel, the recurrent carry and the step
 count.
 
-Training (:func:`make_train_step`): P recurrent passes with grad enabled,
-the contrast-max loss on the stacked flows, one backward through all passes
-and the warp, a global-norm clip and the optimizer update. The carry handed
-to the next window is detached: truncated BPTT at the window edge, as the
-JAX step's pure carry is (reference ``models/model.py:50-60``).
+Training (:func:`make_train_step`): P passes with grad enabled, the
+contrast-max loss of ``LOSS_REGISTRY`` (Iterative or Linear) on the
+stacked flows, one backward through all passes and the warp, a global-norm
+clip and the optimizer update. The carry handed to the next window is
+detached: truncated BPTT at the window edge, as the JAX step's pure carry
+is (reference ``models/model.py:50-60``).
 
 Eval (:func:`make_eval_step`, :func:`make_eval_window_step`) runs under
 ``torch.inference_mode()``. ``inference_dtype`` (e.g. ``torch.bfloat16``)
@@ -37,7 +38,8 @@ from ..utils.device import resolve_device
 
 class TrainState(NamedTuple):
     """What one train step hands the next: the model's recurrent carry
-    (detached, ``[B, ...]`` NCHW maps) and the number of steps taken."""
+    (detached, ``[B, ...]`` NCHW maps; ``()`` for a stateless model) and
+    the number of steps taken."""
 
     carry: Tuple[torch.Tensor, ...]
     step: int

@@ -101,5 +101,10 @@ def test_build_model_seeded_and_registry():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)
     for name in ("EVFlowNet", "RecFireFlowNet", "FireFlowNet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model({"name": name}, device="cpu")
+        m = build_model({"name": name}, device="cpu", seed=5)
+        assert type(m).__name__ == name
+        again = build_model({"name": name}, device="cpu", seed=5)
+        assert all(torch.equal(v, again.state_dict()[k])
+                   for k, v in m.state_dict().items())
+    with pytest.raises(ValueError, match="Unknown model"):
+        build_model({"name": "FlowNetX"}, device="cpu")

@@ -195,9 +195,13 @@ def test_unported_knobs_raise(rng, knob):
         tobj.iterative_loss(t(flows), t(events), t(pol), t(gm),
                             tobj.LossConfig(res=RES, passes_loss=2),
                             event_axis="events")
+    # the Linear loss runs (it has none of these knobs); its event_axis
+    # still raises
+    assert torch.isfinite(tobj.LOSS_REGISTRY["Linear"](
+        t(flows), t(events), t(pol), t(gm), cfg))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tobj.LOSS_REGISTRY["Linear"](t(flows), t(events), t(pol), t(gm),
-                                     cfg)
+                                     cfg, event_axis="events")
 
 
 def test_loss_config_fields_match_jax():

@@ -17,7 +17,11 @@ import jax.numpy as jnp
 
 from taming_event_flow_tpu.models import RecEVFlowNet as JaxRecEVFlowNet
 from taming_event_flow_tpu.pipeline import EvalPipeline as JaxEvalPipeline
-from taming_event_flow_tpu_torch.metrics import IterativeValidation, ValConfig
+from taming_event_flow_tpu_torch.metrics import (
+    IterativeValidation,
+    LinearValidation,
+    ValConfig,
+)
 from taming_event_flow_tpu_torch.models import (
     build_model,
     flax_params_to_state_dict,
@@ -215,9 +219,10 @@ def test_flags_eval_time_gate(models):
     assert pipe.boundary_metrics(_window(7)[-1], {"ts": 0.5}) is None
 
 
-def test_runtime_keys_parse_and_linear_is_not_ported(models):
+def test_runtime_keys_parse_and_linear_builds(models):
     """The JAX pipeline's wire keys parse and change nothing: flow_bw comes
-    back on the u16 lattice either way."""
+    back on the u16 lattice either way. A Linear pipeline builds with the
+    Linear validation."""
     _, _, tm = models
     windows = [_window(9)]
     outs = [_drive(EvalPipeline(_config(vis=DSEC_VIS, runtime=runtime), tm,
@@ -227,9 +232,9 @@ def test_runtime_keys_parse_and_linear_is_not_ported(models):
     for k in ("fwl", "rsat", "aee", "flow_bw"):
         np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
     assert outs[1]["flow_bw"].dtype == np.uint16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EvalPipeline(_config(metrics={"warping": "Linear"}), tm,
-                     device="cpu")
+    pipe = EvalPipeline(_config(metrics={"warping": "Linear"}), tm,
+                        device="cpu")
+    assert isinstance(pipe.criteria, LinearValidation)
 
 
 def test_ensure_bucket_pads_and_grows(models):
@@ -324,6 +329,9 @@ def test_port_imports_nothing_of_jax():
     h5py, PyYAML or cv2 at import time."""
     files = list(_port_files())
     assert len(files) > 25
+    pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
+    assert {os.path.join(pkg, "objectives", "linear.py"),
+            os.path.join(pkg, "models", "fire.py")} <= set(files)
     late = set()
     for path in files:
         with open(path) as f:
@@ -357,6 +365,8 @@ def test_port_imports_without_optional_packages():
     config from its defaults; nothing of JAX is loaded."""
     modules = _port_modules()
     assert len(modules) > 25
+    assert {"taming_event_flow_tpu_torch.objectives.linear",
+            "taming_event_flow_tpu_torch.models.fire"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         "for name in ('h5py', 'yaml', 'cv2'):",

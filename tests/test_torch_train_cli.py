@@ -1,7 +1,8 @@
 """The port's training CLI, ``train_flow_torch.py``, on the CPU at the tiny
 config of ``tests/test_e2e.py``: checkpoint and loss metric, the warm start
 (history replay, Adam state carried), the configs it refuses, and the loss
-history against the JAX CLI's from the same initial weights."""
+history against the JAX CLI's from the same initial weights (the registry
+variants: ``tests/test_torch_registry_cli.py``)."""
 
 import argparse
 import os
@@ -140,10 +141,10 @@ def test_warm_start_resume(trained_run, capsys):
 @pytest.mark.parametrize("change", [
     {"parallel": {"event": 2}},
     {"parallel": {"data": 2}},
-    {"data": {"voxel": 4}},
-    {"loss": {"warping": "Linear"}},
-    {"model": {"name": "FireFlowNet"}},
-], ids=["event", "data", "voxel", "linear", "fire"])
+    {"model": {"norm": "BN"}},
+    {"model": {"compute_dtype": "bfloat16"}},
+    {"model": {"use_upsample_conv": False}},
+], ids=["event", "data", "norm", "compute_dtype", "upsample_conv"])
 def test_unported_configs_raise(workspace, tmp_path, change):
     _, ds = workspace
     cfg = train_cfg(ds)

@@ -12,10 +12,12 @@ default, the CPU when asked (``--device cpu``).
 
 Pipeline: the loader streams per-lane windows on the host behind a
 prefetch thread; every ``passes_loss`` windows are stacked into one window,
-copied to the device, and one train step runs the recurrent model over all
-passes, evaluates the iterative contrast-max loss, backprops, clips and
-applies Adam. Sequence changes zero the affected lanes' recurrent carry and
-restart the loss window.
+copied to the device, and one train step runs the model over all passes,
+evaluates the contrast-max loss (``loss.warping``: Iterative or Linear),
+backprops, clips and applies Adam. Every model of the registry trains
+(``model.name``), on count or voxel inputs (``data.voxel``). Sequence
+changes zero the affected lanes' recurrent carry and restart the loss
+window.
 """
 
 import argparse
@@ -62,22 +64,13 @@ def effective_passes(config) -> int:
 
 def check_supported(config) -> None:
     """Raise for what the port's trainer does not run yet: more than one
-    device, voxel inputs and the Linear loss (the model registry's variants
-    raise in ``build_model``)."""
+    device (the model options it lacks raise in ``build_model``, the loss
+    options in the loss)."""
     par = config.get("parallel") or {}
     if int(par.get("data") or 1) > 1 or int(par.get("event") or 1) > 1:
         raise NotImplementedError(
             f"parallel {par} is not ported yet: the port trains on one "
             "device; see ROADMAP.md (multi-device, item 7)")
-    if config["data"].get("voxel") is not None:
-        raise NotImplementedError(
-            "voxel inputs are not ported to the trainer yet; see ROADMAP.md "
-            "(registry variants, item 5)")
-    warping = config["loss"].get("warping", "Iterative")
-    if warping != "Iterative":
-        raise NotImplementedError(
-            f"the {warping} loss is not ported yet; see ROADMAP.md "
-            "(registry variants, item 5)")
 
 
 def train(args, config_parser: YAMLParser, device="cuda"):
@@ -104,13 +97,15 @@ def train(args, config_parser: YAMLParser, device="cuda"):
     res = tuple(config["loader"]["resolution"])
     batch_size = config["loader"]["batch_size"]
     passes = effective_passes(config)
+    voxel = config["data"]["voxel"]
+    num_bins = 2 if voxel is None else voxel
 
     data = H5Loader(config, shuffle=True, path_cache=args.path_cache)
 
     # float32 throughout, as the JAX CLI's parity runs: no TF32
     set_tf32(False)
-    model = build_model(dict(config["model"]), num_bins=2, device=dev,
-                        seed=config["loader"].get("seed") or 0)
+    model = build_model(dict(config["model"]), num_bins=num_bins,
+                        device=dev, seed=config["loader"].get("seed") or 0)
     loss_cfg = LossConfig(
         res=res,
         passes_loss=passes,
