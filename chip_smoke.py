@@ -117,7 +117,27 @@ one NVIDIA card.
    rollover). (d) ``data.voxel: 4`` through both CLIs with RecEVFlowNet:
    a 4-channel model, no count input derived, finite losses and metrics;
    ``events_to_voxel`` on the card against the host's grid.
-10. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+10. Multi-device phase (``parallel/``, on ``torch.distributed``): ranks
+   in children started with ``spawn`` (CUDA forbids ``fork``), held to
+   one-process runs on the card (:func:`parallel_references`). (a) NCCL
+   over a world of one: the event-parallel step at the training cell
+   (B = 8), whose all-reduced gradients must be bitwise the local ones,
+   against ``make_train_step`` within the training-agreement tolerances.
+   (b) Event axis 2 and (c) data axis 2 on two gloo ranks that share
+   ``cuda:0``: the loss and its flow gradient on identical flows (handed
+   to every rank), the full step's loss, parameters bitwise equal on both
+   ranks after 2 steps, 124 / 80 / 116 launches a step, each on half the
+   one-process launch's events (b) or lanes (c). (d) The event-sharded
+   DSEC eval on those ranks, 3 unrectified and 3 rectified windows: FWL,
+   RSAT, AEE against one process, 2 splats and 10 gathers a window and a
+   row gather a rectified one. (e) ``train_flow_torch.train`` with
+   ``parallel: {event: 2}`` and ``{data: 2}`` for one epoch (epoch loss
+   within 1e-5 of one rank's) and ``eval_flow_torch.test`` on the DSEC
+   values (metrics within the CLI row, equal ``flow_bw`` file lists, rank
+   0 alone writing). (f) (b)-(d) over NCCL with one card a rank where the
+   machine has two, else a line that says it was skipped. Times from ranks
+   that share one card are not a scaling figure.
+11. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -1968,6 +1988,34 @@ def run_train_cli(parser, work, patched, prev_runid=""):
     return runid, wall, text
 
 
+def cli_train_data(work, seed, write=True):
+    """The training CLI's two synthetic sequences under ``<work>/data``:
+    ``.h5`` files for the port's ``H5Loader`` where h5py imports (written
+    unless ``write`` is off, for a process that finds them written), else
+    the same arrays in memory (:func:`memory_loader`). Returns the data
+    directory, the loader class and a line naming the source."""
+    from taming_event_flow_tpu_torch.data import (
+        H5Loader,
+        synthetic_sequence,
+        write_synthetic_h5,
+    )
+
+    data_dir = os.path.join(work, "data")
+    kwargs = [dict(n_events=CLI_EVENTS, res=TRAIN_RES, duration=CLI_DURATION,
+                   seed=seed * 10 + i) for i in range(CLI_SEQUENCES)]
+    paths = [os.path.join(data_dir, f"seq{i}.h5") for i in range(len(kwargs))]
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return (data_dir, memory_loader(
+            {p: synthetic_sequence(**kw) for p, kw in zip(paths, kwargs)}),
+            "memory (no h5py) through a subclass of H5Loader")
+    if write:
+        for path, kw in zip(paths, kwargs):
+            write_synthetic_h5(path, **kw)
+    return data_dir, H5Loader, "h5 files through H5Loader"
+
+
 def train_cli_phase(seed, work):
     """The training CLI, ``train_flow_torch.train``, on the card at full
     width: two epochs over two synthetic sequences, then a warm start from
@@ -1978,11 +2026,6 @@ def train_cli_phase(seed, work):
     directory with its loader class."""
     import torch
 
-    from taming_event_flow_tpu_torch.data import (
-        H5Loader,
-        synthetic_sequence,
-        write_synthetic_h5,
-    )
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
     from taming_event_flow_tpu_torch.tracking import (
@@ -1992,23 +2035,8 @@ def train_cli_phase(seed, work):
     from taming_event_flow_tpu_torch.training import stack_window
     from taming_event_flow_tpu_torch.utils import SectionTimer
 
-    data_dir = os.path.join(work, "data")
-    kwargs = [dict(n_events=CLI_EVENTS, res=TRAIN_RES, duration=CLI_DURATION,
-                   seed=seed * 10 + i) for i in range(CLI_SEQUENCES)]
-    paths = [os.path.join(data_dir, f"seq{i}.h5") for i in range(len(kwargs))]
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        h5py = None
-    if h5py is not None:
-        for path, kw in zip(paths, kwargs):
-            write_synthetic_h5(path, **kw)
-        loader_cls, source = H5Loader, "h5 files through H5Loader"
-    else:
-        loader_cls = memory_loader(
-            {p: synthetic_sequence(**kw) for p, kw in zip(paths, kwargs)})
-        source = "memory (no h5py) through a subclass of H5Loader"
-    print(f"train_cli: {len(paths)} sequences of {CLI_EVENTS} events "
+    data_dir, loader_cls, source = cli_train_data(work, seed)
+    print(f"train_cli: {CLI_SEQUENCES} sequences of {CLI_EVENTS} events "
           f"({CLI_DURATION} s), data from {source}")
 
     timers = []
@@ -2090,11 +2118,12 @@ def train_cli_phase(seed, work):
 # ----------------------------------------------------------- eval CLI phase
 
 
-def eval_cli_data(work, tag, specs):
+def eval_cli_data(work, tag, specs, write=True):
     """Synthetic sequences (name -> ``synthetic_sequence`` kwargs) under
     ``<work>/eval_<tag>``: ``.h5`` files for the port's ``H5Loader`` where
-    h5py imports, else the same arrays in memory (:func:`memory_loader`).
-    Returns the data directory and the loader class."""
+    h5py imports (written unless ``write`` is off), else the same arrays in
+    memory (:func:`memory_loader`). Returns the data directory and the
+    loader class."""
     from taming_event_flow_tpu_torch.data import (
         H5Loader,
         synthetic_sequence,
@@ -2109,8 +2138,9 @@ def eval_cli_data(work, tag, specs):
     except ImportError:
         return root, memory_loader(
             {p: synthetic_sequence(**kw) for p, kw in paths.items()})
-    for p, kw in paths.items():
-        write_synthetic_h5(p, **kw)
+    if write:
+        for p, kw in paths.items():
+            write_synthetic_h5(p, **kw)
     return root, H5Loader
 
 
@@ -2761,6 +2791,641 @@ def registry_phase(seed, work, train_data, eval_launches, gpu):
     return total, ms_step, ms_window
 
 
+# ------------------------------------------------ multi-device phase (10)
+
+PAR_STEPS = 2  # event-parallel steps each mesh takes, parameters compared
+PAR_WINDOWS = 3  # unrectified and rectified DSEC windows of (d) each
+PAR_TIMEOUT = 900.0  # seconds the ranks of one spawn may take
+PAR_CLI_PAD = 16384  # loader.n_events_pad of the CLI runs of (e)
+PAR_EVAL_FRAMES = 4  # GT frames of each eval CLI sequence of (e): 2 windows
+PAR_LOSS_RTOL = 1e-5  # the CLI's first steps' losses, 2 ranks against 1
+# the CLI's epoch loss, 2 ranks against 1: one-rank runs on the card part
+# after their second step (the splat's atomics, the loss's gradient jumps
+# and Adam's sign-like first updates): three one-rank runs of the event
+# case spread 2.04e-3 over 4 steps, two two-rank ones lay within 2.41e-3
+# (tools/bench_cli_spread.py; PERF.md, Findings)
+PAR_EPOCH_RTOL = 1e-2
+STEEP_G = 1e-7  # |g| under 10 x Adam's eps: the first update is steep in g
+# each kernel's rows among its launch's arguments: (index of B or None, of M)
+LAUNCH_ROWS = {"splat_bilinear": (3, 4), "gather_bilinear": (3, 4),
+               "gather_fused": (5, 6), "row_gather": (None, 3)}
+# (e): the training CLI's changes; the one-rank runs drop "parallel". The
+# data-axis run streams one lane a rank from its shard of the two files,
+# whose augmentation draws are seeded per shard: no augmentation there
+PAR_CLI_CASES = {
+    "event": {"parallel": {"event": 2},
+              "loader": {"n_events_pad": PAR_CLI_PAD}},
+    "data": {"parallel": {"data": 2},
+             "loader": {"batch_size": 2, "augment": [], "augment_prob": [],
+                        "n_events_pad": PAR_CLI_PAD}},
+}
+
+
+@contextlib.contextmanager
+def launch_rows():
+    """Record ``(kernel, B, M)`` of every kernel launch inside the block
+    (the counters count them all the same)."""
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    real = cuda_warp._launch
+    rows = []
+
+    def spy(kernel, counter, dev, *args):
+        real(kernel, counter, dev, *args)
+        ib, im = LAUNCH_ROWS[counter]
+        rows.append((counter, 1 if ib is None else args[ib], args[im]))
+
+    cuda_warp._launch = spy
+    try:
+        yield rows
+    finally:
+        cuda_warp._launch = real
+
+
+def launch_delta(before):
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+
+    return {k: v - before.get(k, 0) for k, v in LAUNCHES.items()}
+
+
+def par_train_window(seed):
+    """The training cell's window, the same in every process."""
+    return train_window(np.random.default_rng([seed, 10]), TRAIN_B)
+
+
+def par_eval_windows(seed):
+    """(d)'s unrectified and rectified DSEC windows and the index."""
+    rng = np.random.default_rng([seed, 11])
+    plain = synthetic_windows(rng, PAR_WINDOWS)
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    return plain, rectified_windows(rng, PAR_WINDOWS, fwd, ridx[0]), ridx
+
+
+def par_eval_specs(seed):
+    return {"seq_rect": dsec_sequence(PAR_EVAL_FRAMES, seed * 10 + 30,
+                                      rectify=True),
+            "seq_plain": dsec_sequence(PAR_EVAL_FRAMES, seed * 10 + 31)}
+
+
+def eval_windows_on(pipe, windows, ridx):
+    """The windows through ``pipe``: metrics, launches and seconds of each
+    window."""
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+
+    pipe.cur_ridx = ridx
+    mets, launches, secs = [], [], []
+    for w in windows:
+        before = dict(LAUNCHES)
+        (m,), (sec,) = run_windows(pipe, [w])
+        launches.append(launch_delta(before))
+        mets.append({k: float(m[k]) for k in ("fwl", "rsat", "aee")})
+        secs.append(sec)
+    return {"metrics": mets, "launches": launches, "secs": secs}
+
+
+def recording(make):
+    """A stand-in for a step builder that records every step's loss in
+    ``.losses`` of the steps it built (``.steps``)."""
+    def build(*a, **k):
+        step = make(*a, **k)
+
+        def rec(state, window):
+            state, loss = step(state, window)
+            rec.losses.append(float(loss))
+            return state, loss
+
+        rec.losses = []
+        build.steps.append(rec)
+        return rec
+
+    build.steps = []
+    return build
+
+
+def par_cli_parser(data_dir, seed, change, ranks):
+    """``TRAIN_CLI_CONFIG``'s values for one epoch with ``change`` (its
+    ``parallel`` section only when ``ranks`` > 1)."""
+    from taming_event_flow_tpu_torch.configs import deep_merge
+
+    parser = train_cli_config(data_dir, seed)
+    parser.config["loader"]["n_epochs"] = 1
+    change = copy.deepcopy(change)
+    if ranks == 1:
+        change.pop("parallel")
+    deep_merge(parser.config, change)
+    return parser
+
+
+def epoch_losses(work, runid):
+    from taming_event_flow_tpu_torch.tracking import TrackingStore
+
+    return [v for _, v, _ in TrackingStore(work).read_metric(runid, "loss")]
+
+
+def build_mesh_trainer(mesh):
+    """``build_trainer``'s model and optimizer (seed 0) replicated over
+    ``mesh``, its event-parallel step and this rank's carry."""
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import LossConfig
+    from taming_event_flow_tpu_torch.parallel import (
+        make_event_parallel_train_step,
+        replicate,
+        shard_state_2d,
+    )
+    from taming_event_flow_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+    )
+
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    opt = build_optimizer(TRAIN_OPT, model.parameters(),
+                          clip_grad=TRAIN_CLIP, device=DEVICE)
+    replicate(model, opt)
+    step = make_event_parallel_train_step(
+        model, opt, LossConfig(**TRAIN_LOSS), mesh,
+        flow_scaling=FLOW_SCALING, res=TRAIN_RES)
+    state = shard_state_2d(
+        init_train_state(model, TRAIN_B, *TRAIN_RES, device=DEVICE), mesh)
+    return model, step, state
+
+
+def mesh_flow_loss(mesh, window, flows):
+    """The loss and its flow gradient on the given flows, with this rank's
+    lanes and events: the loss summed over the data axis, the gradient
+    averaged over the event axis (on the event axis's rank 0; each rank
+    alone holds E times its shard's part)."""
+    import torch
+    import torch.distributed as dist
+
+    from taming_event_flow_tpu_torch.objectives import (
+        LossConfig,
+        iterative_loss,
+    )
+    from taming_event_flow_tpu_torch.parallel.mesh import take
+
+    b0, b1 = mesh.lanes(TRAIN_B)
+    e0, e1 = mesh.events(TRAIN_N)
+    f = torch.from_numpy(flows[:, :, b0:b1]).to(DEVICE).requires_grad_()
+    ev, pol, gm = (take(take(window[k], 1, b0, b1), 2, e0, e1)
+                   for k in ("event_list", "pol_mask", "grad_mask"))
+    loss = iterative_loss(f, ev, pol, gm, LossConfig(**TRAIN_LOSS),
+                          event_axis=mesh.event_group)
+    loss.backward()
+    loss = loss.detach().clone()
+    dist.all_reduce(loss, group=mesh.data_group)
+    grad = f.grad
+    dist.all_reduce(grad, group=mesh.event_group)
+    grad /= mesh.n_event
+    return float(loss), (grad.cpu().numpy() if mesh.event_index == 0
+                         else None)
+
+
+def mesh_steps(mesh, window):
+    """``PAR_STEPS`` event-parallel steps on this rank's part of the
+    window: losses, seconds, launches and ``(kernel, B, M)`` rows of each
+    step; the parameters are checked bitwise equal on every rank."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+    from taming_event_flow_tpu_torch.parallel import (
+        check_replicated,
+        shard_window_2d,
+    )
+
+    model, step, state = build_mesh_trainer(mesh)
+    local = shard_window_2d(window, mesh)
+    out = {"losses": [], "secs": [], "launches": [], "rows": []}
+    for _ in range(PAR_STEPS):
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with launch_rows() as rows:
+            state, loss = step(state, local)
+        out["losses"].append(float(loss))
+        torch.cuda.synchronize()
+        out["secs"].append(time.perf_counter() - t0)
+        out["launches"].append(launch_delta(before))
+        out["rows"].append(rows)
+    params = list(model.state_dict().values())
+    check_replicated(params)
+    out["checksum"] = float(sum(p.double().sum() for p in params))
+    return out
+
+
+def nccl_world_of_one(rank, world, url, seed):
+    """(a): the event-parallel step on the ``(1, 1)`` mesh over NCCL,
+    against ``make_train_step`` in the same process from the same weights:
+    the all-reduced gradients inside the step must be bitwise the local
+    ones."""
+    import torch
+    import torch.distributed as dist
+
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        kernel_build,
+        reset_launches,
+        set_tf32,
+    )
+    from taming_event_flow_tpu_torch.parallel import (
+        event,
+        init_distributed,
+        make_event_mesh,
+    )
+
+    check(init_distributed({"coordinator": url, "num_processes": world,
+                            "process_id": rank}, device="cuda:0"),
+          "no process group")
+    set_tf32(False)
+    kernel_build.load()
+    out = {"backend": dist.get_backend()}
+    check(out["backend"] == "nccl", f"backend {out['backend']}")
+    window = par_train_window(seed)
+    model_p, step_p, state_p = build_trainer(TRAIN_B, DEVICE)
+    state_p, loss_p = step_p(state_p, window)
+    grads_p = {n: p.grad.detach().clone()
+               for n, p in model_p.named_parameters()}
+
+    identity = []
+    real = event.reduce_gradients
+
+    def spy(params, mesh):
+        before = [p.grad.clone() for p in params]
+        real(params, mesh)
+        identity.append(all(torch.equal(b, p.grad)
+                            for b, p in zip(before, params)))
+
+    event.reduce_gradients = spy
+    try:
+        reset_launches()
+        mesh = make_event_mesh(1, 1)
+        model, step, state = build_mesh_trainer(mesh)
+        secs = []
+        for i in range(1 + PAR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, window)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                loss_m = float(loss)
+                grad_gap, param_bad = 0.0, 0
+                for n, p in model.named_parameters():
+                    g = grads_p[n]
+                    grad_gap = max(grad_gap, float(
+                        (p.grad - g).abs().max() / g.abs().max()))
+                    want = dict(model_p.named_parameters())[n].detach()
+                    tol = torch.where(g.abs() < STEEP_G,
+                                      torch.full_like(want, TRAIN_OPT["lr"]),
+                                      1e-6 + 2e-3 * want.abs())
+                    param_bad += int(((p.detach() - want).abs() > tol).sum())
+        out["launches"] = dict(LAUNCHES)
+    finally:
+        event.reduce_gradients = real
+    out.update(identity=identity, loss=loss_m, loss_plain=float(loss_p),
+               grad_gap=grad_gap, param_bad=param_bad, secs=secs)
+    return out
+
+
+def par_cli_rank(seed, work, runid):
+    """(e) on one rank: both training CLI cases, then the eval CLI; with
+    the kernel launches of the three runs (``eval_cli_run`` resets the
+    counters for its own)."""
+    import train_flow_torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+
+    out = {}
+    before = dict(LAUNCHES)
+    data_dir, loader_cls, _ = cli_train_data(work, seed, write=False)
+    for tag, change in PAR_CLI_CASES.items():
+        parser = par_cli_parser(data_dir, seed, change, ranks=2)
+        root = os.path.join(work, f"par_{tag}_2")
+        os.makedirs(root, exist_ok=True)
+        steps = recording(train_flow_torch.make_event_parallel_train_step)
+        trained, wall, _ = run_train_cli(parser, root, {
+            "H5Loader": loader_cls, "make_event_parallel_train_step": steps})
+        out[tag] = (trained, wall, steps.steps[0].losses)
+    launches = launch_delta(before)
+    data_dir, loader_cls = eval_cli_data(work, "par", par_eval_specs(seed),
+                                         write=False)
+    results, wall, pipe, res_dir, eval_launches = eval_cli_run(
+        "par2", EVAL_DSEC_CLI, data_dir, loader_cls, runid, work)
+    out["launches"] = {k: n + eval_launches[k] for k, n in launches.items()}
+    out["eval"] = {"results": results, "wall": wall, "res_dir": res_dir,
+                   "windows": pipe.windows, "sharded":
+                   pipe.eval_mesh is not None}
+    return out
+
+
+def mesh_rank(rank, world, url, spec):
+    """(b)-(e), or (b)-(d) for (f), on one rank of ``spec["backend"]``:
+    gloo ranks share ``cuda:0``, NCCL ranks take one card each. Returns
+    what it measured and the kernel counters of the whole run."""
+    import torch.distributed as dist
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        kernel_build,
+        reset_launches,
+        set_tf32,
+    )
+    from taming_event_flow_tpu_torch.parallel import (
+        init_distributed,
+        make_event_mesh,
+    )
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    nccl = spec["backend"] == "nccl"
+    check(init_distributed(
+        {"coordinator": url, "num_processes": world, "process_id": rank},
+        backend=spec["backend"], device=f"cuda:{rank if nccl else 0}"),
+        "no process group")
+    set_tf32(False)
+    kernel_build.load()
+    reset_launches()
+    out = {"backend": dist.get_backend()}
+    window = par_train_window(spec["seed"])
+    for tag, shape in (("event", (1, 2)), ("data", (2, 1))):
+        mesh = make_event_mesh(*shape)
+        out[tag] = {"flow": mesh_flow_loss(mesh, window, spec["flows"]),
+                    "steps": mesh_steps(mesh, window)}
+    plain, rect, ridx = par_eval_windows(spec["seed"])
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    pipe = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+    check(pipe.eval_mesh is not None, "the eval pipeline did not shard")
+    out["eval"] = {"plain": eval_windows_on(pipe, plain, None),
+                   "rect": eval_windows_on(pipe, rect, ridx),
+                   "slots": pipe.criteria.n_events}
+    out["launches"] = dict(LAUNCHES)
+    if spec["clis"]:
+        out["cli"] = par_cli_rank(spec["seed"], spec["work"], spec["runid"])
+        for k, n in out["cli"]["launches"].items():
+            out["launches"][k] += n
+    return out
+
+
+def parallel_references(seed):
+    """The one-process runs (b)-(d) hold their ranks to, on the card: the
+    training cell's loss and flow gradient on given flows, two steps with
+    the rows of each launch, and (d)'s eval windows."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import (
+        LossConfig,
+        iterative_loss,
+    )
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+    from taming_event_flow_tpu_torch.training import run_passes
+
+    ref = {}
+    window = par_train_window(seed)
+    model, step, state = build_trainer(TRAIN_B, DEVICE)
+    with torch.no_grad():
+        flows, _ = run_passes(model, state.carry, window["net_input"],
+                              FLOW_SCALING)
+    f = flows.clone().requires_grad_()
+    loss = iterative_loss(f, window["event_list"], window["pol_mask"],
+                          window["grad_mask"], LossConfig(**TRAIN_LOSS))
+    loss.backward()
+    ref.update(flows=flows.cpu().numpy(), loss=float(loss),
+               grad=f.grad.cpu().numpy(), step_losses=[], rows=[])
+    for _ in range(PAR_STEPS):
+        with launch_rows() as rows:
+            state, loss = step(state, window)
+        ref["step_losses"].append(float(loss))
+        ref["rows"].append(rows)
+
+    plain, rect, ridx = par_eval_windows(seed)
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    pipe = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+    ref["eval"] = {"plain": eval_windows_on(pipe, plain, None),
+                   "rect": eval_windows_on(pipe, rect, ridx)}
+    return ref
+
+
+def cli_references(seed, work, runid):
+    """(e)'s one-rank runs of both CLIs on the card: each training case's
+    epoch loss, wall seconds and step losses, and the eval CLI's results
+    and their directory."""
+    import train_flow_torch
+
+    data_dir, loader_cls, _ = cli_train_data(work, seed, write=False)
+    ref = {}
+    for tag, change in PAR_CLI_CASES.items():
+        root = os.path.join(work, f"par_{tag}_1")
+        os.makedirs(root, exist_ok=True)
+        steps = recording(train_flow_torch.make_train_step)
+        rid, wall, _ = run_train_cli(
+            par_cli_parser(data_dir, seed, change, ranks=1), root,
+            {"H5Loader": loader_cls, "make_train_step": steps})
+        ref[tag] = (epoch_losses(root, rid), wall, steps.steps[0].losses)
+    data_dir, loader_cls = eval_cli_data(work, "par", par_eval_specs(seed))
+    results, wall, _, res_dir, _ = eval_cli_run(
+        "par1", EVAL_DSEC_CLI, data_dir, loader_cls, runid, work)
+    ref["eval"] = {"results": results, "wall": wall, "res_dir": res_dir}
+    return ref
+
+
+def flow_bw_files(res_dir):
+    tree = os.path.join(res_dir, "results", "eval_0")
+    return {seq: sorted(os.listdir(os.path.join(tree, seq, "flow_bw")))
+            for seq in sorted(os.listdir(tree))}
+
+
+def check_mesh_results(out, ref, label):
+    """(b)-(d) of ranks ``out`` against the one-process ``ref``; prints
+    the times under ``label``. Returns the ms per step and per window."""
+    times = {}
+    for tag, (n_data, n_event) in (("event", (1, 2)), ("data", (2, 1))):
+        ranks = [r[tag] for r in out]
+        # the loss and its flow gradient on identical flows
+        loss = ranks[0]["flow"][0]
+        if n_data == 1:
+            grad = ranks[0]["flow"][1]
+        else:
+            grad = np.concatenate([r["flow"][1] for r in ranks], axis=2)
+        rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        gap = float(np.abs(grad - ref["grad"]).max()
+                    / np.abs(ref["grad"]).max())
+        print(f"phase 10 {label} {tag} axis 2: loss on identical flows "
+              f"{loss:.7f} vs {ref['loss']:.7f} (rel {rel:.2e}), flow "
+              f"gradient gap {gap:.2e} of max |g|")
+        check(rel <= TRAIN_LOSS_RTOL, f"{label} {tag}: loss rel {rel:.2e}")
+        check(gap <= TRAIN_GRAD_TOL, f"{label} {tag}: flow gradient {gap}")
+        # the full step
+        steps = [r["steps"] for r in ranks]
+        rel = abs(steps[0]["losses"][0] - ref["step_losses"][0]) \
+            / abs(ref["step_losses"][0])
+        check(rel <= TRAIN_LOSS_RTOL, f"{label} {tag}: step loss rel {rel}")
+        check(len({s["checksum"] for s in steps}) == 1,
+              f"{label} {tag}: parameters differ between ranks")
+        for s in steps:
+            check(all(n == TRAIN_LAUNCHES for n in s["launches"]),
+                  f"{label} {tag}: launches a step {s['launches']}")
+            for got, want in zip(s["rows"], ref["rows"]):
+                # as multisets: the backward may take independent branches
+                # in another order
+                shard = [(k, b // n_data, m // n_event) for k, b, m in want]
+                check(sorted(got) == sorted(shard), f"{label} {tag}: launch "
+                      "rows differ from the one-process step's shard")
+        ms = [1e3 * t for s in steps for t in s["secs"][1:]]
+        times[tag] = float(np.mean(ms))
+        print(f"phase 10 {label} {tag} axis 2: step losses "
+              f"{steps[0]['losses']} (one process {ref['step_losses']}; "
+              f"rel {rel:.2e}); parameters bitwise equal on every rank; "
+              f"launches a step {steps[0]['launches'][0]}, each on "
+              f"{'N/2 events' if n_data == 1 else 'B/2 lanes'}; "
+              f"{times[tag]:.3f} ms/step")
+    # (d) the sharded DSEC eval
+    for kind, rows in (("plain", 0), ("rect", 1)):
+        want = ref["eval"][kind]
+        for r in out:
+            got = r["eval"][kind]
+            for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+                for k in ("fwl", "rsat", "aee"):
+                    check(math.isclose(g[k], w[k], rel_tol=METRIC_RTOL,
+                                       abs_tol=METRIC_ATOL),
+                          f"{label} eval {kind} window {i} {k}: {g[k]} vs "
+                          f"{w[k]}")
+            expect = {"splat_bilinear": 2, "gather_bilinear": PASSES,
+                      "gather_fused": 0, "row_gather": rows}
+            check(all(n == expect for n in got["launches"]),
+                  f"{label} eval {kind}: launches {got['launches']}")
+        ms = [1e3 * t for r in out for t in r["eval"][kind]["secs"][1:]]
+        times[f"eval_{kind}"] = float(np.mean(ms))
+        gaps = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(out[0]["eval"][kind]["metrics"],
+                                   want["metrics"])
+                   for k in ("fwl", "rsat", "aee"))
+        print(f"phase 10 {label} eval {kind}: {out[0]['eval']['slots']} "
+              f"slots a rank; FWL/RSAT/AEE within rel {gaps:.2e} of one "
+              f"process; launches a window "
+              f"{out[0]['eval'][kind]['launches'][0]}; "
+              f"{times[f'eval_{kind}']:.3f} ms/window")
+    return times
+
+
+def check_cli_results(out, ref, work):
+    """(e): both CLIs on 2 ranks against their one-rank runs ``ref``."""
+    for tag in PAR_CLI_CASES:
+        runid, wall, steps = out[0]["cli"][tag]
+        check(out[1]["cli"][tag][0] == "rank1", f"(e) {tag}: rank 1's id")
+        check(out[1]["cli"][tag][2] == steps,
+              f"(e) {tag}: the ranks' step losses differ")
+        got = epoch_losses(os.path.join(work, f"par_{tag}_2"), runid)
+        want, wall1, want_steps = ref[tag]
+        check(len(got) == len(want) == 1, f"(e) {tag}: losses {got} {want}")
+        check(len(steps) == len(want_steps) >= PAR_STEPS,
+              f"(e) {tag}: steps {steps} {want_steps}")
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        rel_steps = max(abs(a - b) / abs(b) for a, b in
+                        zip(steps[:PAR_STEPS], want_steps[:PAR_STEPS]))
+        print(f"phase 10 (e) train_cli {tag}: 2 ranks on one card, epoch "
+              f"loss {got}, steps {steps} ({wall:.2f} s); one rank {want}, "
+              f"steps {want_steps} ({wall1:.2f} s); first {PAR_STEPS} "
+              f"steps rel {rel_steps:.2e}, epoch rel {rel:.2e}")
+        check(rel_steps <= PAR_LOSS_RTOL,
+              f"(e) {tag}: first steps' losses rel {rel_steps:.2e}")
+        check(rel <= PAR_EPOCH_RTOL, f"(e) {tag}: epoch loss rel {rel:.2e}")
+    e2, e1 = out[0]["cli"]["eval"], ref["eval"]
+    check(out[1]["cli"]["eval"]["results"] is None,
+          "(e) eval: rank 1 returned results")
+    check(e2["sharded"], "(e) eval: the CLI's pipeline did not shard")
+    for metric, seqs in e1["results"].items():
+        for seq, v in seqs.items():
+            a, b = float(e2["results"][metric][seq]), float(v)
+            check(math.isclose(a, b, rel_tol=METRIC_RTOL,
+                               abs_tol=METRIC_ATOL),
+                  f"(e) eval {metric} {seq}: {a} vs {b}")
+    files = sorted(f for f in os.listdir(e2["res_dir"]) if f.endswith(".yml"))
+    check(files == ["eval_0.yml", "metrics_0.yml"],
+          f"(e) eval: result files {files} (rank 0 alone writes)")
+    check(flow_bw_files(e2["res_dir"]) == flow_bw_files(e1["res_dir"]),
+          "(e) eval: flow_bw file lists differ")
+    for r in out:
+        for seq, w in r["cli"]["eval"]["windows"]:
+            expect = {"splat_bilinear": 2, "gather_bilinear": PASSES,
+                      "gather_fused": 0,
+                      "row_gather": int(seq == "seq_rect")}
+            check(w == expect, f"(e) eval {seq}: launches {w}")
+    print(f"phase 10 (e) eval_cli: 2 ranks on one card {e2['results']} "
+          f"({e2['wall']:.2f} s), one rank {e1['results']} "
+          f"({e1['wall']:.2f} s); flow_bw files "
+          f"{ {k: len(v) for k, v in flow_bw_files(e2['res_dir']).items()} }"
+          f" on rank 0 alone")
+
+
+def parallel_phase(seed, work, runid):
+    """Phase 10: the multi-device layer. (a) NCCL over a world of one; (b)
+    the event axis and (c) the data axis on two gloo ranks that share
+    ``cuda:0``; (d) the event-sharded DSEC eval and (e) both CLIs on those
+    ranks; (f) (b)-(d) over NCCL with one card a rank, when there are two.
+    Returns the ranks' kernel counters and the ms of each shared-card case."""
+    import torch
+
+    from taming_event_flow_tpu_torch.parallel.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    ref = parallel_references(seed)
+    ref_cli = cli_references(seed, work, runid)
+    print("phase 10 references on one process: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    rdv = tempfile.mkdtemp(prefix="rdv_", dir=work)
+
+    def url(tag):
+        return "file://" + os.path.join(rdv, tag)
+
+    launches = {k: 0 for k in TRAIN_LAUNCHES}
+    (a,) = run_ranks(nccl_world_of_one, 1, (url("a"), seed),
+                     timeout=PAR_TIMEOUT)
+    rel = abs(a["loss"] - a["loss_plain"]) / abs(a["loss_plain"])
+    print(f"phase 10 (a) NCCL, world of one: all-reduced gradients bitwise "
+          f"the local ones in {len(a['identity'])} steps "
+          f"({all(a['identity'])}); step loss {a['loss']:.7f} vs "
+          f"make_train_step {a['loss_plain']:.7f} (rel {rel:.2e}); "
+          f"gradients within {a['grad_gap']:.2e} of max |g|; "
+          f"{a['param_bad']} parameters outside tolerance; "
+          f"{float(np.mean(a['secs'][1:])) * 1e3:.3f} ms/step")
+    check(a["identity"] and all(a["identity"]),
+          "(a) the one-rank all-reduce changed the gradients")
+    check(rel <= TRAIN_LOSS_RTOL, f"(a) loss rel {rel:.2e}")
+    check(a["grad_gap"] <= TRAIN_GRAD_TOL, f"(a) gradient {a['grad_gap']}")
+    check(a["param_bad"] == 0, f"(a) {a['param_bad']} parameters off")
+    for k in launches:
+        launches[k] += a["launches"][k]
+
+    spec = {"backend": "gloo", "seed": seed, "flows": ref["flows"],
+            "clis": True, "work": work, "runid": runid}
+    t0 = time.perf_counter()
+    out = run_ranks(mesh_rank, 2, (url("shared"), spec), timeout=PAR_TIMEOUT)
+    print(f"phase 10 (b)-(e): two gloo ranks on one card, "
+          f"{time.perf_counter() - t0:.1f} s")
+    times = check_mesh_results(out, ref, "(b)-(d) two ranks on one card")
+    check_cli_results(out, ref_cli, work)
+    for r in out:
+        for k in launches:
+            launches[k] += r["launches"][k]
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        spec = dict(spec, backend="nccl", clis=False)
+        out = run_ranks(mesh_rank, 2, (url("cards"), spec),
+                        timeout=PAR_TIMEOUT)
+        check_mesh_results(out, ref, "(f) NCCL, one card a rank")
+        for r in out:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    else:
+        print(f"phase 10 (f): skipped: {n_cards} card on this machine, "
+              "NCCL over one card a rank needs two")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s; times from "
+          "ranks sharing one card are not a scaling figure")
+    return launches, times
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2812,12 +3477,14 @@ def main(argv=None):
             args.seed, work, runid, per_window, gpu)
         registry_launches, ms_linear, ms_linear_window = registry_phase(
             args.seed, work, train_data, per_window, gpu)
+        par_launches, par_times = parallel_phase(args.seed, work, runid)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
              "train": train_launches, "train_cli": cli_launches,
-             "eval_cli": eval_cli_launches, "registry": registry_launches}
+             "eval_cli": eval_cli_launches, "registry": registry_launches,
+             "parallel": par_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -2851,6 +3518,9 @@ def main(argv=None):
           f"protocol, bf16)")
     print(f"linear_train_ms_per_step {ms_linear:.4f} (B={TRAIN_B}, f32); "
           f"linear_window_ms {ms_linear_window} (DSEC, bf16)")
+    print("parallel_ms (two gloo ranks sharing one card, not a scaling "
+          "figure): " + ", ".join(f"{k} {v:.4f}"
+                                  for k, v in par_times.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

@@ -16,7 +16,15 @@ per-sequence averages, and the image tree
 ``results/eval_<id>/<sequence>/<panel>/%09d.png`` with ``timestamps.txt``,
 which ``prepare_dsec_submission.py`` turns into a DSEC-Flow submission.
 The weights come from the run's ``artifacts/model/checkpoint.pt``. One
-device: the card by default, the CPU when asked (``--device cpu``).
+process runs on one device: the card by default, the CPU when asked
+(``--device cpu``).
+
+Several devices: ``torchrun --nproc_per_node=K eval_flow_torch.py <runid>
+...`` shards the validation slot state's event axis over the K ranks, as
+``eval_flow.py`` shards it over its devices (``pipeline/eval.py``). Every
+rank streams the same batches and runs every collective; rank 0 alone reads
+the metrics back and writes ``metrics_*.yml``, the PNGs and the submission
+tree.
 
 ``loss.matmul_precision``, ``loss.warp_backend`` and ``runtime.*`` parse
 and do nothing.
@@ -26,12 +34,14 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from taming_event_flow_tpu_torch import tracking
 from taming_event_flow_tpu_torch.configs import YAMLParser
 from taming_event_flow_tpu_torch.data import H5Loader, Prefetcher
 from taming_event_flow_tpu_torch.models import build_model
 from taming_event_flow_tpu_torch.ops import compute_pol_iwe, set_tf32
+from taming_event_flow_tpu_torch.parallel import init_distributed, shared_seed
 from taming_event_flow_tpu_torch.pipeline import (
     EvalPipeline,
     MetricsConsumer,
@@ -76,9 +86,11 @@ def load_weights(model, runid: str, device) -> None:
 
 def test(args, config_parser: YAMLParser, device="cuda"):
     """Evaluate run ``args.runid`` as ``eval_flow.test`` does, on ``device``
-    (the card unless the caller asks for the CPU). Returns ``{metric:
-    {sequence: str(mean)}}``."""
+    (the card unless the caller asks for the CPU; ``cuda:<LOCAL_RANK>``
+    under ``torchrun``). Returns ``{metric: {sequence: str(mean)}}`` on
+    rank 0, ``None`` on the others."""
     dev = resolve_device(device)
+    is_main = not init_distributed(device=dev) or dist.get_rank() == 0
     tracking.set_tracking_uri(args.path_mlflow)
     run = tracking.get_run(args.runid)
     config = config_parser.merge_configs(run.data.params)
@@ -86,14 +98,18 @@ def test(args, config_parser: YAMLParser, device="cuda"):
     config_parser.apply_runtime(config)
 
     config["loader"]["batch_size"] = 1
+    # every rank must stream the same batches in the same order
+    config["loader"]["seed"] = shared_seed(config["loader"].get("seed"))
     res = tuple(config["loader"]["resolution"])
     voxel = config["data"]["voxel"]
     num_bins = 2 if voxel is None else voxel
 
-    path_results = create_model_dir(args.path_results, args.runid)
-    eval_id = log_config(path_results, args.runid, config)
-
-    vis = Visualization(config, eval_id=eval_id, path_results=path_results)
+    vis = None
+    if is_main:
+        path_results = create_model_dir(args.path_results, args.runid)
+        eval_id = log_config(path_results, args.runid, config)
+        vis = Visualization(config, eval_id=eval_id,
+                            path_results=path_results)
 
     data = H5Loader(config, shuffle=True)
 
@@ -106,8 +122,8 @@ def test(args, config_parser: YAMLParser, device="cuda"):
     want_vis, tm = pipe.vis.want, pipe.tm
     metric_names = pipe.metric_names
     # boundary metrics are read back on a reader thread, off the dispatch
-    # loop
-    consumer = MetricsConsumer(metric_names)
+    # loop (on rank 0: the others run the same collectives and drop them)
+    consumer = MetricsConsumer(metric_names) if is_main else None
 
     bar = None
     prefetcher = Prefetcher(batch_stream(data, pipe), depth=3)
@@ -117,7 +133,7 @@ def test(args, config_parser: YAMLParser, device="cuda"):
                 sequence = meta["sequence"]
                 pipe.cur_ridx = meta["remap_idx"]
 
-                if pipe.vis.bars:
+                if pipe.vis.bars and is_main:
                     if bar is None:
                         bar = ProgressBar(sequence, max=meta["bar_iters"])
                     bar.next()
@@ -137,6 +153,14 @@ def test(args, config_parser: YAMLParser, device="cuda"):
                 batch = pipe.ensure_bucket(batch)
                 flow_fine = pipe.ingest(batch, meta)
 
+                # the vis slots every rank computes (their reducers are
+                # collectives); rank 0 alone stores them
+                window_images = pipe.vis_window_images()
+                if not is_main:
+                    if pipe.passes_done == pipe.passes:
+                        pipe.boundary_outputs(batch, meta)
+                    continue
+
                 flow_vis = None
                 if want_vis("flow") or want_vis("iwe"):
                     flow_vis = flow_fine
@@ -154,7 +178,7 @@ def test(args, config_parser: YAMLParser, device="cuda"):
                         round_idx=False, round_flow=False,
                     )
 
-                vis.data.update(pipe.vis_window_images())
+                vis.data.update(window_images)
 
                 vis.data["flow_bw"] = None
                 if pipe.passes_done == pipe.passes:
@@ -174,13 +198,16 @@ def test(args, config_parser: YAMLParser, device="cuda"):
     finally:
         prefetcher.close()
         data.close()
-        # drain the metric readbacks (re-raises any reader error)
-        val_results = consumer.close()
-        # flush the PNG writeback thread, surfacing any worker error,
-        # before the results are logged: the submission formatter reads
-        # the image tree right after this returns
-        vis.close()
+        if is_main:
+            # drain the metric readbacks (re-raises any reader error)
+            val_results = consumer.close()
+            # flush the PNG writeback thread, surfacing any worker error,
+            # before the results are logged: the submission formatter
+            # reads the image tree right after this returns
+            vis.close()
 
+    if not is_main:
+        return None
     if pipe.vis.verbose:
         print(tm.report())
 

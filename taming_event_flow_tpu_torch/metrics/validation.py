@@ -11,6 +11,12 @@ host integer: the pipeline knows the pass count anyway, and a device scalar
 would cost a synchronise per pass.
 
 All state tensors are made and changed under ``torch.inference_mode()``.
+
+Event-sharded evaluation (``parallel/eval.py``) holds N / E slots per rank:
+the window reducers take an ``event_axis`` (the event group) and all-reduce
+their partial images over it before any variance or ratio; ``update``
+needs no collective (the warp is per event) and ``window_flow`` reads the
+replicated pixel accumulators.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..ops.warp import (
     purge_unfeasible,
     splat_values,
 )
+from ..parallel.collectives import all_reduce_sum
 from ..utils.device import resolve_device
 
 
@@ -259,13 +266,15 @@ class IterativeValidation:
     # ---------------- window accessors (reference flow_val.py:630-678) ----
 
     @torch.inference_mode()
-    def window_events(self, state: ValState, round_idx: bool = False):
-        return iwe_from_events(_flat(state.event_loc), _flat(state.pol_mask),
-                               self.cfg.res, round_idx=round_idx)
+    def window_events(self, state: ValState, round_idx: bool = False,
+                      event_axis=None):
+        return _merged(iwe_from_events(
+            _flat(state.event_loc), _flat(state.pol_mask), self.cfg.res,
+            round_idx=round_idx), event_axis)
 
     @torch.inference_mode()
     def window_iwe(self, state: ValState, mode: str = "forward",
-                   round_idx: bool = False):
+                   round_idx: bool = False, event_axis=None):
         if mode == "forward":
             loc, mask = state.fw_loc, state.fw_mask
         elif mode == "backward":
@@ -275,8 +284,8 @@ class IterativeValidation:
             loc, mask = state.bw_loc, state.bw_mask
         else:
             raise ValueError(f"Invalid IWE mode: {mode}")
-        return iwe_from_events(_flat(loc), _flat(mask), self.cfg.res,
-                               round_idx=round_idx)
+        return _merged(iwe_from_events(_flat(loc), _flat(mask), self.cfg.res,
+                                       round_idx=round_idx), event_axis)
 
     @torch.inference_mode()
     def window_flow(self, state: ValState, mode: Optional[str] = None,
@@ -310,21 +319,24 @@ class IterativeValidation:
                 _flat(state.fw_mask), _flat(state.pol_mask))
 
     @torch.inference_mode()
-    def rsat(self, state: ValState):
+    def rsat(self, state: ValState, event_axis=None):
         return compute_rsat(*self._window_args(state), _flat(state.event_ts),
-                            self._num_passes(state), self.cfg.res)
+                            self._num_passes(state), self.cfg.res,
+                            event_axis=event_axis)
 
     @torch.inference_mode()
-    def fwl(self, state: ValState):
-        return compute_fwl(*self._window_args(state), self.cfg.res)
+    def fwl(self, state: ValState, event_axis=None):
+        return compute_fwl(*self._window_args(state), self.cfg.res,
+                           event_axis=event_axis)
 
     @torch.inference_mode()
-    def rsat_fwl(self, state: ValState):
+    def rsat_fwl(self, state: ValState, event_axis=None):
         """Both window metrics from two shared splats
         (:func:`compute_rsat_fwl`)."""
         return compute_rsat_fwl(*self._window_args(state),
                                 _flat(state.event_ts),
-                                self._num_passes(state), self.cfg.res)
+                                self._num_passes(state), self.cfg.res,
+                                event_axis=event_axis)
 
 
 class LinearValidation(IterativeValidation):
@@ -369,12 +381,13 @@ class LinearValidation(IterativeValidation):
 
     @torch.inference_mode()
     def window_iwe(self, state: ValState, mode: str = "forward",
-                   round_idx: bool = False):
+                   round_idx: bool = False, event_axis=None):
         """The forward IWE, whatever ``mode`` says: the reference's Linear
         ``window_iwe`` ignores it (``flow_val.py:393-400``), so the
         ``iwe_bw_*`` panels show the forward IWE too."""
         fw, _, mask = self._fw_events(state)
-        return iwe_from_events(fw, mask, self.cfg.res, round_idx=round_idx)
+        return _merged(iwe_from_events(fw, mask, self.cfg.res,
+                                       round_idx=round_idx), event_axis)
 
     @torch.inference_mode()
     def window_flow(self, state: ValState, mode: Optional[str] = None,
@@ -424,13 +437,20 @@ def grow_val_state(state: ValState, n_new: int) -> ValState:
                          "fw_ts", "fw_mask", "bw_loc", "bw_mask")})
 
 
-def _ts_image_sums(events, pol_mask, ts, res):
+def _merged(image, event_axis):
+    """A partial image of this rank's events merged over the event group
+    (the image itself without one)."""
+    return image if event_axis is None else all_reduce_sum(image, event_axis)
+
+
+def _ts_image_sums(events, pol_mask, ts, res, event_axis=None):
     """Per-polarity count + ts-sum images for RSAT (one 4-channel
-    round_idx splat)."""
+    round_idx splat, merged over ``event_axis``)."""
     vals = torch.cat(
         [pol_mask[..., 0:1], pol_mask[..., 1:2],
          pol_mask[..., 0:1] * ts, pol_mask[..., 1:2] * ts], dim=-1)
-    buf = splat_values(events, vals, res, round_idx=True)
+    buf = _merged(splat_values(events, vals, res, round_idx=True),
+                  event_axis)
     return buf[..., 0:1], buf[..., 1:2], buf[..., 2:3], buf[..., 3:4]
 
 
@@ -439,14 +459,18 @@ def _var(x):
     return torch.var(x, correction=0)
 
 
-def compute_fwl(fw_events, zero_events, fw_pol, zero_pol, res):
+def compute_fwl(fw_events, zero_events, fw_pol, zero_pol, res,
+                event_axis=None):
     """Flow Warp Loss: var(IWE) / var(zero-warp IWE)
-    (reference ``loss/flow_val.py:189-212``)."""
+    (reference ``loss/flow_val.py:189-212``). With ``event_axis`` (the
+    event group of a sharded slot state) the partial IWEs are merged over
+    it before the variances."""
     fw_iwe = splat_values(fw_events, fw_pol.sum(-1, keepdim=True), res,
                           round_idx=True)
     z_iwe = splat_values(zero_events, zero_pol.sum(-1, keepdim=True), res,
                          round_idx=True)
-    return _var(fw_iwe) / _var(z_iwe)
+    return (_var(_merged(fw_iwe, event_axis))
+            / _var(_merged(z_iwe, event_axis)))
 
 
 def _rsat_term(pos, neg, pos_ts, neg_ts, num_passes):
@@ -459,25 +483,29 @@ def _rsat_term(pos, neg, pos_ts, neg_ts, num_passes):
 
 
 def compute_rsat(fw_events, zero_events, fw_pol, zero_pol, ts, num_passes,
-                 res):
+                 res, event_axis=None):
     """Ratio of Squared Averaged Timestamps, ``[B]``
-    (reference ``loss/flow_val.py:214-274``)."""
-    fw = _ts_image_sums(fw_events, fw_pol, ts, res)
-    zz = _ts_image_sums(zero_events, zero_pol, ts, res)
+    (reference ``loss/flow_val.py:214-274``); ``event_axis`` as in
+    :func:`compute_fwl`: the count and ts images are merged before any
+    ratio."""
+    fw = _ts_image_sums(fw_events, fw_pol, ts, res, event_axis)
+    zz = _ts_image_sums(zero_events, zero_pol, ts, res, event_axis)
     return _rsat_term(*fw, num_passes) / _rsat_term(*zz, num_passes)
 
 
 def compute_rsat_fwl(fw_events, zero_events, fw_pol, zero_pol, ts,
-                     num_passes, res):
+                     num_passes, res, event_axis=None):
     """RSAT and FWL from TWO shared 4-channel splats: FWL's count image is
     the sum of RSAT's per-polarity count planes. The planes are sums of 0/1
     masks, exact in float32 whatever the order of accumulation (atomics on
     the card included), so FWL is bitwise equal to :func:`compute_fwl`'s.
 
+    ``event_axis`` as in :func:`compute_fwl`.
+
     :return: ``(rsat [B], fwl scalar)``.
     """
-    fw = _ts_image_sums(fw_events, fw_pol, ts, res)
-    zz = _ts_image_sums(zero_events, zero_pol, ts, res)
+    fw = _ts_image_sums(fw_events, fw_pol, ts, res, event_axis)
+    zz = _ts_image_sums(zero_events, zero_pol, ts, res, event_axis)
     rsat = _rsat_term(*fw, num_passes) / _rsat_term(*zz, num_passes)
     fwl = _var(fw[0] + fw[1]) / _var(zz[0] + zz[1])
     return rsat, fwl

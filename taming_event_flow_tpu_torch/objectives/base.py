@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..ops import get_event_flow, splat_values
+from ..parallel.collectives import all_reduce_sum
 
 
 class LossConfig(NamedTuple):
@@ -74,17 +75,24 @@ def global_ts(event_ts, pass_idx, round_ts: bool):
     return ts
 
 
-def iwe_with_ts(warped_loc, pol_mask, norm_ts, res):
+def iwe_with_ts(warped_loc, pol_mask, norm_ts, res, event_axis=None):
     """Per-polarity IWE and timestamp-IWE in ONE 4-channel splat
     (pos, neg, pos*ts, neg*ts).
 
     :param warped_loc: ``[B, N, 2]`` warped ``(y, x)`` locations.
     :param pol_mask: ``[B, N, 2]`` polarity mask (zero for padding).
     :param norm_ts: ``[B, N, 1]`` normalized timestamps.
+    :param event_axis: optional process group the event dimension is
+        sharded over: the partial 4-channel buffer is all-reduced over it
+        (:func:`..parallel.collectives.all_reduce_sum`) before it is split,
+        so everything after sees the whole IWE. The splat is a plain sum
+        over events, so this is exact.
     :return: ``(iwe, iwe_ts)`` each ``[B, H, W, 2]``.
     """
     vals = torch.cat([pol_mask, pol_mask * norm_ts], dim=-1)  # [B, N, 4]
     buf = splat_values(warped_loc, vals, res)
+    if event_axis is not None:
+        buf = all_reduce_sum(buf, event_axis)
     return buf[..., 0:2], buf[..., 2:4]
 
 

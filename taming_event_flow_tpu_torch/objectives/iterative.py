@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import get_event_flow, purge_unfeasible
+from ..parallel.collectives import pmean
 from .base import (
     LossConfig,
     flow_spatial_smoothing,
@@ -120,12 +121,11 @@ def warp_table_triangular(flow_maps, event_loc, event_ts, pol_mask, res,
     return torch.stack(table_loc), torch.stack(table_mask)
 
 
-def _unported(cfg: LossConfig, event_axis):
+def _unported(cfg: LossConfig):
     for flag, what in ((not cfg.triangular_warp,
                         "triangular_warp=False (the scan warp table)"),
                        (cfg.batched_sweep, "batched_sweep=True"),
-                       (cfg.warp_remat, "warp_remat=True"),
-                       (event_axis is not None, "event_axis (event mesh)")):
+                       (cfg.warp_remat, "warp_remat=True")):
         if flag:
             raise NotImplementedError(
                 f"iterative_loss: {what} is not ported yet; see ROADMAP.md")
@@ -142,10 +142,15 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
         ``[0, 1]`` per window; zero-padded.
     :param pol_mask: ``[P, B, N, 2]``.
     :param grad_mask: ``[P, B, N, 1]`` (1 = gradient-path event).
-    :param event_axis: not ported (the JAX package's event mesh); raises.
+    :param event_axis: optional process group the event dimension is
+        sharded over (the event group of ``parallel.make_event_mesh``):
+        every IWE merges its partial splats over it, and the loss is
+        ``pmean``'d over it. Every rank of the group then holds the global
+        loss, and the mean routes one unit of cotangent through each
+        rank's splats (see ``parallel.event.reduce_gradients``).
     :return: scalar loss.
     """
-    _unported(cfg, event_axis)
+    _unported(cfg)
     p, s_scales = flows.shape[0], flows.shape[1]
     if p != cfg.passes_loss:
         raise ValueError(f"flows hold {p} passes, the config "
@@ -193,7 +198,7 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
 
                     norm_ts = 1.0 - torch.abs(tref - flat(wts)) / delta
                     iwe, iwe_ts = iwe_with_ts(flat(wl), flat(wm), norm_ts,
-                                              cfg.res)
+                                              cfg.res, event_axis)
                     iwe_ts_norm = iwe_ts / (iwe + 1e-9)
                     loss_update = loss_update + focus_loss(
                         iwe, iwe_ts_norm, cfg.loss_scaling)
@@ -213,4 +218,6 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
     if cfg.flow_temp_smooth_weight is not None and p > 1:
         loss = loss + flow_temporal_smoothing(flow_seq, cfg.res,
                                               cfg.flow_temp_smooth_weight)
+    if event_axis is not None:
+        loss = pmean(loss, event_axis)
     return loss

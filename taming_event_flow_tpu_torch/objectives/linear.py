@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import event_propagation, get_event_flow, purge_unfeasible
+from ..parallel.collectives import pmean
 from .base import (
     LossConfig,
     flow_spatial_smoothing,
@@ -48,13 +49,10 @@ def linear_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
     :param pol_mask: ``[P, B, N, 2]``.
     :param grad_mask: ``[P, B, N, 1]`` (1 = gradient-path event), or
         ``None``.
-    :param event_axis: not ported (the JAX package's event mesh); raises.
+    :param event_axis: optional process group the event dimension is
+        sharded over (see :func:`..iterative.iterative_loss`).
     :return: scalar loss.
     """
-    if event_axis is not None:
-        raise NotImplementedError(
-            "linear_loss: event_axis (event mesh) is not ported yet; see "
-            "ROADMAP.md")
     p, s_scales = flows.shape[0], flows.shape[1]
     if p != cfg.passes_loss:
         raise ValueError(f"flows hold {p} passes, the config "
@@ -98,7 +96,7 @@ def linear_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
                 bw_ts = 1.0 - torch.abs(low_pass - w_ts) / scale
                 for warped, norm_ts in ((fw, fw_ts), (bw, bw_ts)):
                     iwe, iwe_ts = iwe_with_ts(warped, w_mask, norm_ts,
-                                              cfg.res)
+                                              cfg.res, event_axis)
                     loss_update = loss_update + focus_loss(
                         iwe, iwe_ts / (iwe + 1e-9), cfg.loss_scaling)
             loss_update = loss_update / (2**s)
@@ -115,4 +113,6 @@ def linear_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
     if cfg.flow_temp_smooth_weight is not None and p > 1:
         loss = loss + flow_temporal_smoothing(flow_seq, cfg.res,
                                               cfg.flow_temp_smooth_weight)
+    if event_axis is not None:
+        loss = pmean(loss, event_axis)
     return loss

@@ -21,7 +21,11 @@ is the JAX package's contract (``step.py:225-235, 349-358``): the model,
 the carry and the input are cast to it for the forward pass, and the flow is
 cast back to float32 before the validation update, which stays float32. The
 builders cast a copy of the model once, so later changes to the caller's
-model do not reach a built step.
+model do not reach a built step. With an event mesh (``parallel/eval.py``)
+the eval steps derive the inputs from the whole event list on every rank
+(the count input and the event mask see every event, as the replicated
+model and AEE's mask must), then keep this rank's N / E events for the
+update.
 """
 
 from __future__ import annotations
@@ -224,7 +228,8 @@ def make_forward_fn(model, flow_scaling: float = 32.0) -> Callable:
 
 def make_eval_step(model, val, flow_scaling: float = 32.0,
                    inference_dtype=None,
-                   extras: Optional[Callable] = None) -> Callable:
+                   extras: Optional[Callable] = None,
+                   mesh=None) -> Callable:
     """One pass: model forward + validation update. Returned signature::
 
         vstate, carry, flow_fine = step(vstate, carry, x, ev, pol, emask,
@@ -234,15 +239,20 @@ def make_eval_step(model, val, flow_scaling: float = 32.0,
     rectified sequence from its raw coordinates ``raw [B, N, 2]`` and its
     rectification index ``ridx``). With ``with_extras=True`` (and
     ``extras`` given) a 4th value ``extras(vstate, aux)`` comes back: the
-    window-boundary quantities.
+    window-boundary quantities. With an event ``mesh`` the update takes
+    this rank's share of ``ev`` and ``pol`` (``val`` holds N / E slots).
     """
     net = _cast_model(model, inference_dtype)
+    if mesh is not None:
+        from ..parallel.eval import shard_eval_batch
 
     @torch.inference_mode()
     def step(vstate, carry, x, ev, pol, emask, n_active, aux=None,
              with_extras=False, raw=None, ridx=None):
         x, pol, emask = _derive_inputs(val.cfg.res, ev, x, pol, emask, raw,
                                        ridx)
+        if mesh is not None:
+            ev, pol = shard_eval_batch(ev, pol, mesh)
         c, xin = _cast(carry, x, inference_dtype)
         flows, new_carry = net(xin, c)
         flow_fine = flows[-1].float() * flow_scaling
@@ -256,7 +266,8 @@ def make_eval_step(model, val, flow_scaling: float = 32.0,
 
 def make_eval_window_step(model, val, flow_scaling: float = 32.0,
                           inference_dtype=None, reset_first: bool = False,
-                          extras: Optional[Callable] = None) -> Callable:
+                          extras: Optional[Callable] = None,
+                          mesh=None) -> Callable:
     """All P passes of a window (forward + update each, with the same
     ``n_active`` slot slicing as P calls of :func:`make_eval_step`)::
 
@@ -268,10 +279,12 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
     ``None``; a rectified window derives from ``raw [P,B,N,2]`` and
     ``ridx``, see :func:`make_eval_step`). ``reset_first`` resets
     ``vstate`` before the first pass; ``extras(vstate, aux)`` adds a 4th
-    return value.
+    return value; ``mesh`` as in :func:`make_eval_step`.
     """
     net = _cast_model(model, inference_dtype)
     passes = val.cfg.passes
+    if mesh is not None:
+        from ..parallel.eval import shard_eval_window
 
     @torch.inference_mode()
     def window(vstate, carry, xs, evs, pols, emasks, aux=None, raw=None,
@@ -280,6 +293,8 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
             vstate = val.reset(vstate)
         xs, pols, emasks = _derive_inputs(val.cfg.res, evs, xs, pols, emasks,
                                           raw, ridx)
+        if mesh is not None:
+            evs, pols = shard_eval_window(evs, pols, mesh)
         flow_fine = None
         for k in range(passes):
             c, x = _cast(carry, xs[k], inference_dtype)

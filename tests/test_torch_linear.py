@@ -21,6 +21,8 @@ from taming_event_flow_tpu.metrics import validation as jval
 from taming_event_flow_tpu_torch import objectives as tobj
 from taming_event_flow_tpu_torch.metrics import validation as tval
 
+from .test_torch_objectives import value_and_grad, world_of_one
+
 RES = (8, 10)
 N_GRAD, N_DET = 12, 6
 N = N_GRAD + N_DET
@@ -89,19 +91,24 @@ def test_linear_loss_smoothing_terms_match_jax(rng, scales):
     np.testing.assert_allclose(t[1], j[1], **GRAD_TOL)
 
 
-def test_linear_loss_detached_events_carry_no_gradient(rng):
+def test_linear_loss_detached_events_carry_no_gradient(rng, tmp_path):
     """With every event off the gradient path only the smoothing terms
-    reach the flows; ``event_axis`` still raises."""
+    reach the flows, with or without an ``event_axis`` (a world of one
+    rank: the same zero gradient)."""
     flows, events, pol, gm = make_inputs(rng, 2)
     t = torch.from_numpy
-    f = t(flows).requires_grad_()
     cfg = tobj.LossConfig(res=RES, passes_loss=2)
-    tobj.linear_loss(f, t(events), t(pol), t(np.zeros_like(gm)),
-                     cfg).backward()
-    assert float(f.grad.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.linear_loss(t(flows), t(events), t(pol), t(gm), cfg,
-                         event_axis="events")
+    detached = (events, pol, np.zeros_like(gm))
+    _, grad = value_and_grad(tobj.linear_loss, flows, detached, cfg)
+    assert float(grad.abs().max()) == 0.0
+    with world_of_one(tmp_path) as group:
+        _, grad = value_and_grad(tobj.linear_loss, flows, detached, cfg,
+                                 event_axis=group)
+        assert float(grad.abs().max()) == 0.0
+        loss = tobj.linear_loss(t(flows), t(events), t(pol), t(gm), cfg,
+                                event_axis=group)
+        assert torch.equal(loss, tobj.linear_loss(
+            t(flows), t(events), t(pol), t(gm), cfg))
 
 
 # ------------------------------------------------------ LinearValidation

@@ -11,6 +11,8 @@ weight. On the batch-2, no-border-compensation, unscaled case the JAX
 package's own gradient moves by 1.5e-5 (of a largest 0.43) when the flows
 are perturbed by one ulp."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,10 @@ import jax.numpy as jnp
 
 from taming_event_flow_tpu import objectives as jobj
 from taming_event_flow_tpu_torch import objectives as tobj
+from taming_event_flow_tpu_torch.parallel import (
+    init_distributed,
+    make_event_mesh,
+)
 
 RES = (8, 10)
 B = 1
@@ -182,26 +188,49 @@ def test_padding_invariance(rng):
     np.testing.assert_allclose(padded, base, rtol=1e-6)
 
 
+@contextlib.contextmanager
+def world_of_one(tmp_path):
+    """A gloo process group of this process alone, and the event group of
+    its (1 x 1) mesh."""
+    init_distributed({"coordinator": f"file://{tmp_path / 'rdv'}",
+                      "num_processes": 1, "process_id": 0}, device="cpu")
+    try:
+        yield make_event_mesh(1, 1).event_group
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def value_and_grad(loss_fn, flows, inputs, cfg, **kw):
+    f = torch.from_numpy(flows).requires_grad_()
+    loss = loss_fn(f, *map(torch.from_numpy, inputs), cfg, **kw)
+    loss.backward()
+    return loss.detach(), f.grad
+
+
 @pytest.mark.parametrize("knob", [
     {"triangular_warp": False}, {"batched_sweep": True},
     {"warp_remat": True}])
-def test_unported_knobs_raise(rng, knob):
+def test_unported_knobs_raise(rng, tmp_path, knob):
+    """The three item-5 knobs still raise; an ``event_axis`` over a world
+    of one rank gives the loss and flow gradient of ``None``, bit for bit
+    (its all-reduces are the identity), in both losses."""
     flows, events, pol, gm = make_inputs(rng, 2)
     cfg = tobj.LossConfig(res=RES, passes_loss=2, **knob)
     t = torch.from_numpy
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tobj.iterative_loss(t(flows), t(events), t(pol), t(gm), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.iterative_loss(t(flows), t(events), t(pol), t(gm),
-                            tobj.LossConfig(res=RES, passes_loss=2),
-                            event_axis="events")
-    # the Linear loss runs (it has none of these knobs); its event_axis
-    # still raises
+    # the Linear loss runs (it has none of these knobs)
     assert torch.isfinite(tobj.LOSS_REGISTRY["Linear"](
         t(flows), t(events), t(pol), t(gm), cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.LOSS_REGISTRY["Linear"](t(flows), t(events), t(pol), t(gm),
-                                     cfg, event_axis="events")
+    plain = tobj.LossConfig(res=RES, passes_loss=2)
+    with world_of_one(tmp_path) as group:
+        for warping in ("Iterative", "Linear"):
+            loss_fn = tobj.LOSS_REGISTRY[warping]
+            ref = value_and_grad(loss_fn, flows, (events, pol, gm), plain)
+            one = value_and_grad(loss_fn, flows, (events, pol, gm), plain,
+                                 event_axis=group)
+            assert torch.equal(one[0], ref[0]), warping
+            assert torch.equal(one[1], ref[1]), warping
 
 
 def test_loss_config_fields_match_jax():

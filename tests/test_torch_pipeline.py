@@ -331,7 +331,9 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 25
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
     assert {os.path.join(pkg, "objectives", "linear.py"),
-            os.path.join(pkg, "models", "fire.py")} <= set(files)
+            os.path.join(pkg, "models", "fire.py"),
+            os.path.join(pkg, "parallel", "event.py"),
+            os.path.join(pkg, "parallel", "collectives.py")} <= set(files)
     late = set()
     for path in files:
         with open(path) as f:
@@ -366,7 +368,8 @@ def test_port_imports_without_optional_packages():
     modules = _port_modules()
     assert len(modules) > 25
     assert {"taming_event_flow_tpu_torch.objectives.linear",
-            "taming_event_flow_tpu_torch.models.fire"} <= set(modules)
+            "taming_event_flow_tpu_torch.models.fire",
+            "taming_event_flow_tpu_torch.parallel.multihost"} <= set(modules)
     code = "\n".join([
         "import importlib, sys",
         "for name in ('h5py', 'yaml', 'cv2'):",

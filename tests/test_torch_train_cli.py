@@ -138,20 +138,23 @@ def test_warm_start_resume(trained_run, capsys):
     assert adam == {ckpt2["step"]}
 
 
-@pytest.mark.parametrize("change", [
-    {"parallel": {"event": 2}},
-    {"parallel": {"data": 2}},
-    {"model": {"norm": "BN"}},
-    {"model": {"compute_dtype": "bfloat16"}},
-    {"model": {"use_upsample_conv": False}},
+@pytest.mark.parametrize("change,error", [
+    ({"parallel": {"event": 2}}, ValueError),
+    ({"parallel": {"data": 2}}, ValueError),
+    ({"model": {"norm": "BN"}}, NotImplementedError),
+    ({"model": {"compute_dtype": "bfloat16"}}, NotImplementedError),
+    ({"model": {"use_upsample_conv": False}}, NotImplementedError),
 ], ids=["event", "data", "norm", "compute_dtype", "upsample_conv"])
-def test_unported_configs_raise(workspace, tmp_path, change):
+def test_unported_configs_raise(workspace, tmp_path, change, error):
+    """The model options the port lacks raise ``NotImplementedError``; a
+    ``parallel`` mesh larger than the world (here one process) raises
+    ``ValueError``, as ``train_flow.py`` does; each names ROADMAP.md."""
     _, ds = workspace
     cfg = train_cfg(ds)
     for section, values in change.items():
         cfg.setdefault(section, {}).update(values)
     path = write_cfg(tmp_path / "cfg.yml", cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match="ROADMAP"):
         run_port(path, tmp_path)
 
 

@@ -7,8 +7,20 @@
 
 It reads the same configs, takes the same flags and writes the same
 tracking layout (``mlruns/0/<runid>/``) as ``train_flow.py``, with the
-checkpoint at ``artifacts/model/checkpoint.pt``. One device: the card by
-default, the CPU when asked (``--device cpu``).
+checkpoint at ``artifacts/model/checkpoint.pt``. One process runs on one
+device: the card by default, the CPU when asked (``--device cpu``).
+
+Several devices: launch one process per device with ``torchrun``::
+
+    torchrun --nproc_per_node=K train_flow_torch.py --config ...
+
+The ranks form the ``(data, event)`` mesh of ``train_flow.py``:
+``parallel.event`` (default 1) ranks split each lane's events, and
+``parallel.data`` (default the world over ``event``) split the batch lanes;
+each rank streams its lanes from its shard of the files, and the gradients
+are summed over the data axis and averaged over the event axis before the
+clip (``parallel/event.py``). Only rank 0 writes the run, the checkpoint and
+TensorBoard, and prints.
 
 Pipeline: the loader streams per-lane windows on the host behind a
 prefetch thread; every ``passes_loss`` windows are stacked into one window,
@@ -30,6 +42,15 @@ from taming_event_flow_tpu_torch.data import H5Loader, Prefetcher
 from taming_event_flow_tpu_torch.models import build_model
 from taming_event_flow_tpu_torch.objectives import LossConfig
 from taming_event_flow_tpu_torch.ops import set_tf32
+from taming_event_flow_tpu_torch.parallel import (
+    exchange_flags,
+    init_distributed,
+    make_event_mesh,
+    make_event_parallel_train_step,
+    replicate,
+    shard_window_2d,
+    world_size,
+)
 from taming_event_flow_tpu_torch.tracking import (
     TensorBoardMirror,
     load_checkpoint,
@@ -62,37 +83,72 @@ def effective_passes(config) -> int:
     return p
 
 
-def check_supported(config) -> None:
-    """Raise for what the port's trainer does not run yet: more than one
-    device (the model options it lacks raise in ``build_model``, the loss
-    options in the loss)."""
+def make_train_mesh(config):
+    """The ``(data, event)`` mesh of ``train_flow.py:185-252``, or ``None``
+    for one rank and no ``parallel`` shape (the one-device path).
+
+    ``n_event = parallel.event or 1``, ``n_data = parallel.data or world /
+    n_event``. Every rank is a process of its own, as on the JAX package's
+    multi-host path: ``loader.seed`` and ``loader.n_events_pad`` are
+    required (every rank must see the same file permutation, and window
+    shapes that differ between ranks would hang the all-reduces), the data
+    axis must divide the batch and the event axis ``loader.n_events_pad``.
+
+    :raises ValueError: for a shape the world cannot hold, or a rule above.
+    """
     par = config.get("parallel") or {}
-    if int(par.get("data") or 1) > 1 or int(par.get("event") or 1) > 1:
-        raise NotImplementedError(
-            f"parallel {par} is not ported yet: the port trains on one "
-            "device; see ROADMAP.md (multi-device, item 7)")
+    world = world_size()
+    n_event = int(par.get("event") or 1)
+    n_data = int(par.get("data") or max(world // n_event, 1))
+    if world == 1 and n_data * n_event == 1:
+        return None
+    mesh = make_event_mesh(n_data, n_event)
+    loader = config["loader"]
+    if loader["batch_size"] % n_data:
+        raise ValueError(f"batch_size {loader['batch_size']} not divisible "
+                         f"by data axis {n_data}")
+    n_pad = loader.get("n_events_pad")
+    if loader.get("seed") is None or not n_pad:
+        raise ValueError(
+            "training over several ranks needs loader.seed (the same file "
+            "permutation everywhere) and loader.n_events_pad (window shapes "
+            "that differ between ranks would hang the all-reduces)")
+    if n_pad % n_event:
+        raise ValueError(f"n_events_pad {n_pad} not divisible by event axis "
+                         f"{n_event}")
+    return mesh
 
 
 def train(args, config_parser: YAMLParser, device="cuda"):
     """Train as ``train_flow.train`` does, on ``device`` (the card unless
-    the caller asks for the CPU). Returns the run id."""
+    the caller asks for the CPU; ``cuda:<LOCAL_RANK>`` under ``torchrun``).
+    Returns the run id (rank 0's; the others return ``rank<r>``)."""
     dev = resolve_device(device)
     config = config_parser.config
-    check_supported(config)
+    init_distributed(config.get("parallel"), device=dev)
+    mesh = make_train_mesh(config)
+    is_main = mesh is None or mesh.rank == 0
 
-    tracking.set_tracking_uri(args.path_mlflow)
-    tracking.set_experiment(config["experiment"])
-    run = tracking.start_run()
-    runid = run.info.run_id
-    tracking.log_params({k: str(v) for k, v in config.items()})
-    tracking.log_params({"prev_runid": args.prev_runid})
+    if is_main:
+        tracking.set_tracking_uri(args.path_mlflow)
+        tracking.set_experiment(config["experiment"])
+        run = tracking.start_run()
+        runid = run.info.run_id
+        tracking.log_params({k: str(v) for k, v in config.items()})
+        tracking.log_params({"prev_runid": args.prev_runid})
+    else:
+        runid = f"rank{mesh.rank}"
     config = config_parser.combine_entries(config)
     config_parser.apply_runtime(config)
-    print("Run id:", runid)
-
     meter = StepMeter()
-    save_diff("train_diff.txt")
-    tb = TensorBoardMirror(runid)
+    tb = None
+    if is_main:
+        print("Run id:", runid)
+        save_diff("train_diff.txt")
+        tb = TensorBoardMirror(runid)
+    if mesh is not None and is_main:
+        print(f"(data={mesh.n_data}, event={mesh.n_event}) mesh over "
+              f"{mesh.n_data * mesh.n_event} ranks")
 
     res = tuple(config["loader"]["resolution"])
     batch_size = config["loader"]["batch_size"]
@@ -100,7 +156,18 @@ def train(args, config_parser: YAMLParser, device="cuda"):
     voxel = config["data"]["voxel"]
     num_bins = 2 if voxel is None else voxel
 
-    data = H5Loader(config, shuffle=True, path_cache=args.path_cache)
+    # each rank streams the lanes of its data index from its shard of the
+    # (identically permuted) files; the ranks of an event group stream the
+    # same lanes
+    local_batch, lane_lo, file_shard = batch_size, 0, None
+    if mesh is not None:
+        lane_lo, lane_hi = mesh.lanes(batch_size)
+        local_batch = lane_hi - lane_lo
+        config["loader"] = dict(config["loader"], batch_size=local_batch)
+        if mesh.n_data > 1:
+            file_shard = (mesh.data_index, mesh.n_data)
+    data = H5Loader(config, shuffle=True, path_cache=args.path_cache,
+                    lane_offset=lane_lo, file_shard=file_shard)
 
     # float32 throughout, as the JAX CLI's parity runs: no TF32
     set_tf32(False)
@@ -123,9 +190,10 @@ def train(args, config_parser: YAMLParser, device="cuda"):
         config["optimizer"], model.parameters(),
         clip_grad=config["loss"].get("clip_grad"), device=dev,
     )
-    state = init_train_state(model, batch_size, res[0], res[1], device=dev)
+    state = init_train_state(model, local_batch, res[0], res[1], device=dev)
 
-    # warm start (reference ``train_flow.py:63``), Adam moments included
+    # warm start (reference ``train_flow.py:63``), Adam moments included;
+    # every rank loads the checkpoint from the shared store
     epoch = 0
     if args.prev_runid:
         ckpt, epoch = load_checkpoint(args.prev_runid)
@@ -136,19 +204,24 @@ def train(args, config_parser: YAMLParser, device="cuda"):
             state = state._replace(step=ckpt["step"])
             # replay the prior loss history into the new run
             # (reference ``utils/utils.py:33-44``)
-            for _, v, s in tracking.default_store().read_metric(
-                args.prev_runid, "loss"
-            ):
-                tracking.log_metric("loss", v, step=s)
-                tb.add_scalar("loss", v, s)
+            if is_main:
+                for _, v, s in tracking.default_store().read_metric(
+                    args.prev_runid, "loss"
+                ):
+                    tracking.log_metric("loss", v, step=s)
+                    tb.add_scalar("loss", v, s)
     data.epoch = epoch
 
-    step_fn = make_train_step(
-        model, optimizer, loss_cfg,
-        warping=config["loss"].get("warping", "Iterative"),
-        flow_scaling=config["loss"].get("flow_scaling", 32),
-        res=res,
-    )
+    step_args = dict(warping=config["loss"].get("warping", "Iterative"),
+                     flow_scaling=config["loss"].get("flow_scaling", 32),
+                     res=res)
+    if mesh is None:
+        step_fn = make_train_step(model, optimizer, loss_cfg, **step_args)
+    else:
+        # rank 0's weights and moments on every rank, checked bit for bit
+        replicate(model, optimizer)
+        step_fn = make_event_parallel_train_step(model, optimizer, loss_cfg,
+                                                 mesh, **step_args)
     n_epochs = config["loader"]["n_epochs"]
 
     def window_stream():
@@ -160,17 +233,29 @@ def train(args, config_parser: YAMLParser, device="cuda"):
                              windows (the reference counts one batch per
                              optimizer step, ``train_flow.py:119-121``)
         ("window", w, meta)  a full pass-stacked window of numpy arrays
+                             (this rank's events of it on an event mesh)
+
+        On a mesh the flags are exchanged every batch
+        (``parallel.exchange_flags``): a lane reset anywhere drops every
+        rank's partial window, and the epoch ends when every rank's lanes
+        have finished it.
         """
         window_batches = []
         windows_in_epoch = 0
         while True:
             batch = data.next_batch()
             new_seq = batch["new_seq"]
-            if new_seq.any():
+            epoch_done = data.seq_num >= len(data.files)
+            reset = new_seq.any()
+            if mesh is not None:
+                every_lane, epoch_done = exchange_flags(new_seq, epoch_done,
+                                                        mesh)
+                reset = every_lane.any()
+            if reset:
                 window_batches = []
                 yield ("reset", new_seq.copy())
 
-            if data.seq_num >= len(data.files):  # epoch rollover
+            if epoch_done:  # epoch rollover
                 yield ("epoch_end", data.epoch, windows_in_epoch)
                 windows_in_epoch = 0
                 data.epoch += 1
@@ -183,6 +268,8 @@ def train(args, config_parser: YAMLParser, device="cuda"):
             if len(window_batches) < passes:
                 continue
             window = stack_window(window_batches)
+            if mesh is not None:
+                window = shard_window_2d(window, mesh, local_lanes=True)
             window_batches = []
             windows_in_epoch += 1
             yield ("window", window, (data.epoch, data.seq_num))
@@ -214,13 +301,17 @@ def train(args, config_parser: YAMLParser, device="cuda"):
                 drain(0)
                 # one batch_size increment per optimizer step (reference
                 # train_flow.py:119-121)
+                # (the step's loss is summed over the data axis: the
+                # global batch's)
                 avg = train_loss / max(n_windows * batch_size, 1)
-                tracking.log_metric("loss", avg, step=epoch_num)
-                tb.add_scalar("loss", avg, epoch_num)
+                if is_main:
+                    tracking.log_metric("loss", avg, step=epoch_num)
+                    tb.add_scalar("loss", avg, epoch_num)
                 if avg < best_loss:
-                    save_checkpoint(runid, model.state_dict(),
-                                    optimizer.state_dict(),
-                                    step=state.step, epoch=epoch_num)
+                    if is_main:
+                        save_checkpoint(runid, model.state_dict(),
+                                        optimizer.state_dict(),
+                                        step=state.step, epoch=epoch_num)
                     best_loss = avg
                 train_loss = 0.0
                 windows_done = 0
@@ -235,7 +326,7 @@ def train(args, config_parser: YAMLParser, device="cuda"):
                 drain(1)
                 meter.tick()
 
-                if config["vis"].get("verbose"):
+                if config["vis"].get("verbose") and is_main:
                     ev = window["event_list"]
                     ev_per_step = float(
                         ev.shape[0] * ev.shape[1] * ev.shape[2])
@@ -251,10 +342,11 @@ def train(args, config_parser: YAMLParser, device="cuda"):
     finally:
         prefetcher.close()
         data.close()
-    if config["vis"].get("verbose"):
+    if config["vis"].get("verbose") and is_main:
         print("\n" + tm.report())
-    tb.close()
-    tracking.end_run()
+    if is_main:
+        tb.close()
+        tracking.end_run()
     return runid
 
 
