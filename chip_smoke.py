@@ -34,9 +34,11 @@ one NVIDIA card.
    (bitwise) at the study's four shapes (``tools/bench_dma_gather.py``:
    307,200 x W rows, W = 8 and 128, 655,360 scattered and contiguous
    indices), at the rectified remap's (a DSEC window's P*H*W = 3,072,000
-   rows of W = 2, a 1-based index with a zeroed border) and at W = 1, an
-   unaligned W = 3 and a W = 4 table at a 4-byte offset (the scalar path),
-   timed beside ``torch.index_select`` and its bytes bound.
+   rows of W = 2, a 1-based index with a zeroed border), at the u32 wire's
+   coordinate lookup (a window's 655,360 raw pixels in the 307,200 x 2
+   forward map) and at W = 1, an unaligned W = 3 and a W = 4 table at a
+   4-byte offset (the scalar path), timed beside ``torch.index_select``
+   and its bytes bound.
 5. Rectified DSEC phase: the eval protocol of step 3 on a synthetic
    rectified sequence (raw integer events, a radial forward map giving the
    list's fractional coordinates through ``data.rectify_events``, a
@@ -85,12 +87,13 @@ one NVIDIA card.
    GT flow: ``metrics_0.yml`` holds a finite entry per sequence and
    metric, each sequence's ``flow_bw/`` one 16-bit PNG per evaluated
    window, every window launches the eval phase's splats and gathers, the
-   row gather exactly once on the rectified sequence and never on the
-   other (``cur_ridx`` comes from the loader through ``batch_stream``),
+   row gather twice on the rectified sequence (the u32 wire's coordinate
+   lookup and the count remap) and never on the other (``cur_ridx`` and
+   ``cur_rect`` come from the loader through ``batch_stream``),
    and no fused gather; ``prepare_dsec_submission.prepare`` on the tree
    writes one ``%06d.png`` per flag. (b) One short rectified sequence in
-   float32 (TF32 off) through the CLI on the card and on the CPU: one row
-   gather per window on the card, metrics within
+   float32 (TF32 off) through the CLI on the card and on the CPU: two row
+   gathers per window on the card, metrics within
    the pipeline-parity tolerance, ``flow_bw`` within one u16 lattice step
    on at least 99.9% of pixels. (c) ``configs/eval_mvsec.yml``'s values
    (P = 1, masked and cropped AEE, ``mask_output``) with every panel
@@ -137,7 +140,26 @@ one NVIDIA card.
    0 alone writing). (f) (b)-(d) over NCCL with one card a rank where the
    machine has two, else a line that says it was skipped. Times from ranks
    that share one card are not a scaling figure.
-11. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+11. Options and wires phase: the registry options and the wire formats.
+   (a) ``norm: IN`` RecEVFlowNet flows at 480x640 in float32, card against
+   CPU (``FAMILY_FLOW_TOL``), and ``compute_dtype: bfloat16`` flows
+   against the float32 model of the same seed (``BF16_FLOW_TOL``; flows,
+   carry and parameters float32); then each through the training cell (B
+   = 8, 1 + ``OPT_STEPS`` steps): finite, changing losses, every gradient
+   (a conv bias before an instance norm may be zero), 124 / 80 / 116
+   launches a step. (b) ``batched_sweep``: loss and flow gradient against
+   the looped sweep on identical flows (the training-agreement
+   tolerances), then through the training cell with its launches a step
+   (``BATCHED_LAUNCHES``), ms/step and peak memory beside the default's
+   (``triangular_warp: false`` and ``warp_remat`` select the default's
+   table in the port). (c) The DSEC cell, unrectified
+   and rectified, on the plain, packed and u32 wires: FWL/RSAT/AEE across
+   wires within the kernel tolerance (bitwise or not, printed), launches a
+   window (2 row gathers on a rectified u32 one), bytes uploaded a window,
+   ms/pass in turns. (d) ``train_flow_torch.train`` with
+   ``runtime.packed_wire`` on and off: the first two step losses within
+   ``WIRE_STEP_RTOL``, bytes uploaded a step.
+12. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -992,6 +1014,19 @@ def row_gather_phase(rng):
         lambda: torch.index_select(table, 0, idx))
     print(f"row_gather remap (M={idx.shape[0]}, W=2): {remap}")
 
+    # the u32 wire's lookup: a window's P * N_PAD raw pixels (padding rows
+    # at pixel 0, as the packed words hold them) in the forward map's
+    # H*W rows of (x_rect, y_rect)
+    fwd = torch.from_numpy(radial_maps()[0]).to(dev).reshape(h * w, 2)
+    # (a generator of its own: the rectified phase's data stay as they were)
+    lrng = np.random.default_rng(3)
+    pix = lrng.integers(0, h * w, PASSES * N_PAD).astype(np.int32)
+    pix[lrng.uniform(size=pix.shape) < 0.4] = 0
+    lookup = study.measure(fwd, torch.from_numpy(pix).to(dev))
+    err = max(err, lookup.pop("max_abs_err"))
+    print(f"row_gather rect lookup (M={pix.shape[0]}, table {h * w} x 2): "
+          f"bitwise its plain version; {lookup}")
+
     # the scalar path: W = 1, an odd W, and a table off 16-byte alignment
     for r_, w_, m_, off in ((100000, 1, 200000, 0), (100000, 3, 200001, 0),
                             (100000, 4, 200000, 1)):
@@ -1017,6 +1052,7 @@ def row_gather_phase(rng):
         **remap,
         "bound_by": "bytes",
         "study": studies,
+        "rect_lookup": lookup,
     }
     return {"row_gather": entry}
 
@@ -1355,10 +1391,11 @@ def train_window(rng, batch, device=DEVICE):
             "grad_mask": torch.ones(shape + (1,), device=dev)}
 
 
-def build_trainer(batch, device, warping="Iterative"):
-    """The training slice: full-width RecEVFlowNet (seed 0), Adam after the
-    global-norm clip, the ``warping`` loss; returns ``(model, step,
-    state)``."""
+def build_trainer(batch, device, warping="Iterative",
+                  model_config=MODEL_CONFIG, loss=TRAIN_LOSS):
+    """The training slice: full-width RecEVFlowNet of ``model_config``
+    (seed 0), Adam after the global-norm clip, the ``warping`` loss of
+    ``loss``; returns ``(model, step, state)``."""
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.objectives import LossConfig
     from taming_event_flow_tpu_torch.training import (
@@ -1367,10 +1404,10 @@ def build_trainer(batch, device, warping="Iterative"):
         make_train_step,
     )
 
-    model = build_model(MODEL_CONFIG, num_bins=2, device=device, seed=0)
+    model = build_model(model_config, num_bins=2, device=device, seed=0)
     opt = build_optimizer(TRAIN_OPT, model.parameters(),
                           clip_grad=TRAIN_CLIP, device=device)
-    step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS),
+    step = make_train_step(model, opt, LossConfig(**loss),
                            warping, flow_scaling=FLOW_SCALING,
                            res=TRAIN_RES)
     return model, step, init_train_state(model, batch, *TRAIN_RES,
@@ -1378,13 +1415,19 @@ def build_trainer(batch, device, warping="Iterative"):
 
 
 def check_grads(model, tag):
-    """Every parameter got a finite, non-zero gradient."""
+    """Every parameter got a finite, non-zero gradient; a conv bias right
+    before an instance norm (``norm: IN``), whose gradient the norm's mean
+    removes, a finite one."""
     import torch
 
     names, grads = zip(*((n, p.grad) for n, p in model.named_parameters()))
     check(all(g is not None for g in grads), f"{tag}: a gradient is missing")
-    ok = torch.stack([torch.isfinite(g).all() & (g != 0).any()
-                      for g in grads]).cpu()
+    params = dict(model.named_parameters())
+    normed = {n for n in names if n.endswith("conv2d.bias") and
+              n.replace("conv2d.bias", "norm_layer.weight") in params}
+    ok = torch.stack([torch.isfinite(g).all()
+                      & ((g != 0).any() | (n in normed))
+                      for n, g in zip(names, grads)]).cpu()
     bad = [n for n, good in zip(names, ok.tolist()) if not good]
     check(not bad, f"{tag}: non-finite or all-zero gradients: {bad}")
 
@@ -2336,7 +2379,9 @@ def eval_cli_phase(seed, work, runid, eval_launches, gpu):
         check(len(windows) == EVAL_CLI_WINDOWS,
               f"{seq}: {len(windows)} windows evaluated")
         check_dsec_tree(tree, seq, len(windows))
-        rows = 1 if seq == "seq_rect" else 0
+        # a rectified window on the default u32 wire: the coordinate lookup
+        # in the forward map and the count input's remap
+        rows = 2 if seq == "seq_rect" else 0
         for i, w in enumerate(windows):
             expect = {"splat_bilinear": eval_launches["splat_bilinear"],
                       "gather_bilinear": eval_launches["gather_bilinear"],
@@ -2370,9 +2415,9 @@ def eval_cli_phase(seed, work, runid, eval_launches, gpu):
         runs[dev] = (res, rdir, len(p.windows))
         if dev == DEVICE:
             all_launches.append(launches)
-            check(launches["row_gather"] == PARITY_WINDOWS,
+            check(launches["row_gather"] == 2 * PARITY_WINDOWS,
                   f"parity: {launches['row_gather']} row gathers for "
-                  f"{PARITY_WINDOWS} rectified windows")
+                  f"{PARITY_WINDOWS} rectified u32 windows")
         print(f"eval_cli (b) {dev}: {time.perf_counter() - t0:.1f} s")
     (r_card, d_card, n_card), (r_cpu, d_cpu, n_cpu) = runs[DEVICE], runs["cpu"]
     check(n_card == n_cpu == PARITY_WINDOWS,
@@ -3426,6 +3471,385 @@ def parallel_phase(seed, work, runid):
     return launches, times
 
 
+# ------------------------------------------------ options and wires phase
+
+OPT_STEPS = 3  # timed steps of each training option, after one warm-up
+# model options through the training cell; each keeps the Iterative
+# loss's launches a step
+MODEL_OPTIONS = {"norm_in": {"norm": "IN"},
+                 "compute_bf16": {"compute_dtype": "bfloat16"}}
+# the batched sweep's launches a step at the training cell (S = 4 flow
+# scales, P = 10, one loss scale, "two"): one splat per (scale, window) in
+# place of 11, so 4 forward splats and the 4 fused gathers behind them
+BATCHED_LAUNCHES = {"splat_bilinear": 84, "gather_bilinear": 80,
+                    "gather_fused": 76, "row_gather": 0}
+# compute_dtype bf16 flows vs the f32 model's, x max|flow|: a few times the
+# gap the card measured (8.8e-3), and at least a ninth of it, so that flows
+# computed in float32 fail
+BF16_FLOW_TOL = (1e-3, 3e-2)
+WIRES = {"plain": {"packed_wire": False},
+         "packed": {"packed_wire": True, "u32_wire": False},
+         "u32": {"packed_wire": True, "u32_wire": True}}
+WIRE_WINDOWS = 3  # DSEC windows per data kind; the first warms up
+WIRE_ROUNDS = 4  # timed passes over the windows per wire, in turns
+WIRE_STEP_RTOL = 1e-5  # the training CLI's first steps, packed vs plain
+
+
+def option_steps(tag, rng, model_change=None, loss_change=None,
+                 expect=TRAIN_LAUNCHES):
+    """The training cell (B = 8) with a model or loss option: one warm-up
+    and ``OPT_STEPS`` timed steps. Checks finite, changing losses, every
+    parameter's gradient and ``expect`` launches a step; returns the
+    launches, ms/step and peak memory (GiB)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+
+    model, step, state = build_trainer(
+        TRAIN_B, DEVICE, model_config=dict(MODEL_CONFIG, **(model_change
+                                                             or {})),
+        loss=dict(TRAIN_LOSS, **(loss_change or {})))
+    windows = [train_window(rng, TRAIN_B) for _ in range(OPT_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for i, window in enumerate(windows):
+        t0 = time.perf_counter()
+        state, loss = step(state, window)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        check(math.isfinite(losses[-1]), f"{tag} step {i}: loss not finite")
+        check_grads(model, f"{tag} step {i}")
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: n * len(windows) for k, n in expect.items()}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check(all(a != b for a, b in zip(losses, losses[1:])),
+          f"{tag}: the loss did not change between steps: {losses}")
+    ms = float(np.mean(secs[1:])) * 1e3
+    print(f"options {tag}: losses {[f'{v:.7f}' for v in losses]}; "
+          f"{ms:.3f} ms/step (mean of {OPT_STEPS} warm steps, B={TRAIN_B}); "
+          f"launches a step {expect}; peak memory {peak:.3f} GiB")
+    del model, step, state, windows
+    torch.cuda.empty_cache()
+    return launches, ms, peak
+
+
+def model_option_flows(rng):
+    """(a): ``norm: IN`` in float32, card against CPU, and ``compute_dtype:
+    bfloat16`` against the float32 model (same seed, same weights) on the
+    card: two passes of a DSEC count input at 480x640 through the
+    full-width RecEVFlowNet."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import derive_count_input
+
+    xs = [derive_count_input(torch.from_numpy(b["event_list"]), RES)
+          for b in synthetic_windows(rng, 1)[0][:2]]  # [1, H, W, 2] each
+
+    def run(model, dev):
+        carry = model.init_state(1, *RES, device=dev)
+        out = []
+        with torch.no_grad():
+            for x in xs:
+                x = x.to(dev)
+                flows, carry = model(x, carry)
+                out.append(flows)
+        return torch.stack(out), carry
+
+    model = build_model(dict(MODEL_CONFIG, norm="IN"), num_bins=2,
+                        device=DEVICE, seed=0)
+    card, _ = run(model, torch.device(DEVICE))
+    cpu, _ = run(copy.deepcopy(model).cpu(), torch.device("cpu"))
+    gap = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    print(f"options (a) norm IN float32 flows at {RES[0]}x{RES[1]}, card vs "
+          f"CPU: max abs err / max |flow| {gap:.3e} (max |flow| "
+          f"{float(cpu.abs().max()):.4f})")
+    check(gap <= FAMILY_FLOW_TOL, f"norm IN card vs cpu {gap:.3e}")
+    f32 = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    bf = build_model(dict(MODEL_CONFIG, compute_dtype="bfloat16"),
+                     num_bins=2, device=DEVICE, seed=0)
+    ref, _ = run(f32, torch.device(DEVICE))
+    got, carry = run(bf, torch.device(DEVICE))
+    check(got.dtype == torch.float32
+          and all(c.dtype == torch.float32 for c in carry)
+          and all(p.dtype == torch.float32 for p in bf.parameters()),
+          "compute_dtype: flows, carry and parameters must stay float32")
+    gap = float((got - ref).abs().max() / ref.abs().max())
+    print(f"options (a) compute_dtype bfloat16 flows vs the float32 model on "
+          f"the card: max abs err / max |flow| {gap:.3e}; flows and carry "
+          f"float32")
+    lo, hi = BF16_FLOW_TOL
+    check(lo <= gap <= hi, f"compute_dtype bf16 gap {gap:.3e}")
+
+
+def batched_sweep_check(rng):
+    """(b), first half: the batched sweep's loss and flow gradient against
+    the looped sweep on identical flows at the training cell, on the
+    card."""
+    import torch
+
+    from taming_event_flow_tpu_torch.objectives import (
+        LOSS_REGISTRY,
+        LossConfig,
+    )
+    from taming_event_flow_tpu_torch.training.step import run_passes
+
+    model, _, state = build_trainer(TRAIN_B, DEVICE)
+    window = train_window(rng, TRAIN_B)
+    with torch.no_grad():
+        flows, _ = run_passes(model, state.carry, window["net_input"],
+                              FLOW_SCALING)
+    del model
+
+    def value_and_grad(cfg):
+        f = flows.clone().requires_grad_()
+        loss = LOSS_REGISTRY["Iterative"](
+            f, window["event_list"], window["pol_mask"], window["grad_mask"],
+            cfg)
+        loss.backward()
+        return float(loss.detach()), f.grad
+
+    base = LossConfig(**TRAIN_LOSS)
+    ref_loss, ref_g = value_and_grad(base)
+    loss, g = value_and_grad(base._replace(batched_sweep=True))
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    gap = float((g - ref_g).abs().max() / ref_g.abs().max())
+    print(f"options (b) batched_sweep: loss {loss:.7f} vs looped "
+          f"{ref_loss:.7f} (rel {rel:.2e}); flow gradient max abs err / max "
+          f"|g| {gap:.2e}")
+    check(rel <= TRAIN_LOSS_RTOL, f"batched_sweep: loss rel {rel:.2e}")
+    check(gap <= TRAIN_GRAD_TOL, f"batched_sweep: flow gradient {gap:.2e}")
+
+
+def stage_bytes(pipe, bufs):
+    """Bytes one window uploads on ``pipe``'s wire (the forward map and
+    the rectification index are on the card already, once a sequence)."""
+    import torch
+
+    staged = pipe.stage_window(bufs)
+    parts = list(staged) + [pipe.stage_pols(bufs)]
+    if isinstance(staged[1], dict):
+        parts += [v for k, v in staged[1].items() if k != "rect"]
+    return sum(t.numel() * t.element_size() for t in parts
+               if torch.is_tensor(t))
+
+
+def wire_windows(rng):
+    """The DSEC cell's windows, unrectified and rectified, with what the
+    plain wire ships: the host-built count input, event mask and polarity
+    masks. Returns ``{kind: (windows, ridx, rect)}``."""
+    from taming_event_flow_tpu_torch.data import events_to_channels_np
+
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    out = {"unrectified": (synthetic_windows(rng, WIRE_WINDOWS), None, None),
+           "rectified": (rectified_windows(rng, WIRE_WINDOWS, fwd, ridx[0]),
+                         ridx, fwd)}
+    for windows, _, _ in out.values():
+        for passes in windows:
+            for b in passes:
+                ev = b["event_list"][0]
+                if "net_input" not in b:
+                    net = events_to_channels_np(ev[:, 2], ev[:, 1], ev[:, 3],
+                                                RES).astype(np.float32)
+                    b["net_input"] = net[None]
+                    b["event_mask"] = (net.sum(-1, keepdims=True) > 0
+                                       ).astype(np.float32)[None]
+                b["event_list_pol_mask"] = np.stack(
+                    [ev[:, 3] > 0, ev[:, 3] < 0], -1).astype(np.float32)[None]
+    return out
+
+
+def wire_phase(rng, gpu):
+    """(c): the DSEC cell on the plain, packed and u32 wires, unrectified
+    and rectified: metrics across wires (within the kernel tolerance; the
+    splats' atomics may reorder sums, and whether they are bitwise is
+    printed), launches a window (on the rectified u32 wire 2 row gathers:
+    the coordinate lookup and the count remap), bytes uploaded a window
+    and ms/pass timed in turns, beside the staging alone (host stacking,
+    packing and the upload, synchronised). Returns the launches."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        reset_launches,
+        unpack_event_wire,
+    )
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    total = {k: 0 for k in TRAIN_LAUNCHES}
+    for kind, (windows, ridx, rect) in wire_windows(rng).items():
+        pipes, mets, secs = {}, {}, {w: [] for w in WIRES}
+        for wire, runtime in WIRES.items():
+            pipe = EvalPipeline(dict(DSEC_CONFIG, runtime=runtime), model,
+                                device=DEVICE)
+            pipe.cur_ridx, pipe.cur_rect = ridx, rect
+            pipes[wire] = pipe
+            reset_launches()
+            mets[wire], _ = run_windows(pipe, windows)
+            launches = dict(LAUNCHES)
+            for k in total:
+                total[k] += launches[k]
+            rows = 0
+            if kind == "rectified" and wire != "plain":
+                rows = 2 if wire == "u32" else 1
+            want = {"splat_bilinear": 2 * WIRE_WINDOWS,
+                    "gather_bilinear": PASSES * WIRE_WINDOWS,
+                    "gather_fused": 0, "row_gather": rows * WIRE_WINDOWS}
+            check(launches == want,
+                  f"wire {wire} {kind}: launches {launches}, expected {want}")
+            bufs = [pipe.ensure_bucket(b) for b in windows[0]]
+            nbytes = stage_bytes(pipe, bufs)
+            staged = pipe.stage_window(bufs)[1]
+            check(isinstance(staged, dict) == (wire == "u32"),
+                  f"wire {wire} {kind}: staged {type(staged)}")
+            if wire == "u32":
+                # the card's unpacking (with the rectified lookup's row
+                # gather) is bitwise the host's event list; padding rows
+                # (p = 0, at raw pixel 0) take that pixel's coordinates
+                ev, _ = unpack_event_wire(staged["ts"], staged["yxp"],
+                                          staged.get("rect"))
+                ev = ev.cpu().numpy()
+                host = np.stack([b["event_list"] for b in bufs])
+                real = host[..., 3] != 0
+                check(np.array_equal(ev[real], host[real])
+                      and np.array_equal(ev[..., [0, 3]], host[..., [0, 3]]),
+                      f"u32 {kind}: the unpacked events differ from the "
+                      "host's")
+                how = ("looked up by the row gather" if rect is not None
+                       else "unpacked")
+                print(f"options (c) {kind} u32: the card's unpacked event "
+                      f"list (coordinates {how}) bitwise the host's")
+            print(f"options (c) {kind} {wire}: {nbytes} bytes uploaded a "
+                  f"window; launches a window "
+                  f"{ {k: v // WIRE_WINDOWS for k, v in launches.items()} }")
+        stage = {w: [] for w in WIRES}
+        padded = [[pipes["plain"].ensure_bucket(b) for b in passes]
+                  for passes in windows]
+        for _ in range(WIRE_ROUNDS):
+            for wire, pipe in pipes.items():
+                secs[wire] += run_windows(pipe, windows)[1]
+                for bufs in padded:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pipe.stage_window(bufs)
+                    pipe.stage_pols(bufs)
+                    torch.cuda.synchronize()
+                    stage[wire].append(time.perf_counter() - t0)
+        for wire in ("packed", "u32"):
+            bitwise = True
+            for i, (a, b) in enumerate(zip(mets[wire], mets["plain"])):
+                for k in ("fwl", "rsat", "aee"):
+                    bitwise &= float(a[k]) == float(b[k])
+                    check(math.isclose(float(a[k]), float(b[k]),
+                                       rel_tol=KERNEL_RTOL,
+                                       abs_tol=KERNEL_ATOL),
+                          f"wire {wire} {kind} window {i} {k}: {a[k]} vs "
+                          f"plain {b[k]}")
+            print(f"options (c) {kind}: {wire} wire's FWL/RSAT/AEE "
+                  f"{'bitwise equal to' if bitwise else 'within rel 1e-5 of'}"
+                  f" the plain wire's over {WIRE_WINDOWS} windows")
+        print(f"options (c) {kind} ms/pass (bf16, {len(secs['plain'])} warm "
+              f"windows each, in turns) on {gpu}: " + ", ".join(
+                  f"{w} {float(np.mean(v)) / PASSES * 1e3:.3f}"
+                  for w, v in secs.items()))
+        print(f"options (c) {kind} staging alone, ms a window (stack, pack "
+              f"and upload, synchronised; {len(stage['plain'])} each, in "
+              f"turns) on {gpu}: " + ", ".join(
+                  f"{w} {float(np.mean(v)) * 1e3:.3f} (min "
+                  f"{float(np.min(v)) * 1e3:.3f})" for w, v in stage.items()))
+    return total
+
+
+def train_wire_ab(seed, work, train_data):
+    """(d): ``train_flow_torch.train`` at ``TRAIN_CLI_CONFIG``'s values
+    for one epoch with ``runtime.packed_wire`` on and off: the first two
+    steps' losses within ``WIRE_STEP_RTOL`` (the card's CLI is not
+    reproducible past its second step), the bytes each step uploads.
+    Returns the launches."""
+    import train_flow_torch
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+
+    data_dir, loader_cls = train_data
+    out, total = {}, {k: 0 for k in TRAIN_LAUNCHES}
+    real_stack = train_flow_torch.stack_window
+    for packed in (True, False):
+        sent = []
+
+        def stack(*a, **k):
+            w = real_stack(*a, **k)
+            sent.append(sum(v.nbytes for v in w.values()))
+            return w
+
+        steps = recording(train_flow_torch.make_train_step)
+        parser = train_cli_config(data_dir, seed)
+        parser.config["loader"]["n_epochs"] = 1
+        parser.config["runtime"] = {"packed_wire": packed}
+        parser.config["vis"]["verbose"] = False
+        root = os.path.join(work, f"wire_{packed}")
+        os.makedirs(root, exist_ok=True)
+        reset_launches()
+        run_train_cli(parser, root, {"H5Loader": loader_cls,
+                                     "make_train_step": steps,
+                                     "stack_window": stack})
+        for k in total:
+            total[k] += LAUNCHES[k]
+        n = len(steps.steps[0].losses)
+        want = {k: v * n for k, v in TRAIN_LAUNCHES.items()}
+        check(dict(LAUNCHES) == want,
+              f"train wire {packed}: launches {dict(LAUNCHES)}, {want}")
+        out[packed] = (steps.steps[0].losses, float(np.mean(sent)))
+    (on, b_on), (off, b_off) = out[True], out[False]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(on[:2], off[:2]))
+    print(f"options (d) train_cli packed wire on / off: first steps "
+          f"{on[:2]} / {off[:2]} (rel {rel:.2e}); {b_on:.0f} / {b_off:.0f} "
+          f"bytes uploaded a step ({len(on)} steps)")
+    check(len(on) == len(off) >= 2, f"train wire: steps {len(on)} {len(off)}")
+    check(rel <= WIRE_STEP_RTOL, f"train wire: first steps rel {rel:.2e}")
+    return total
+
+
+def options_phase(seed, work, train_data, gpu):
+    """Phase 11: the registry options and the wires. (a) ``norm: IN`` and
+    ``compute_dtype: bfloat16`` flows, then each through the training
+    cell; (b) ``batched_sweep`` at the training cell against the looped
+    sweep, with its launches, ms/step and peak memory; (c) the DSEC cell on the three wires; (d) the
+    training CLI on the packed and the plain wire. Returns the launches."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 11])
+    total = {k: 0 for k in TRAIN_LAUNCHES}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    model_option_flows(rng)
+    peaks = {}
+    launches, _, peaks["default"] = option_steps("default", rng)
+    add(launches)
+    for tag, change in MODEL_OPTIONS.items():
+        launches, _, peaks[tag] = option_steps(tag, rng, model_change=change)
+        add(launches)
+    batched_sweep_check(rng)
+    launches, _, peaks["batched_sweep"] = option_steps(
+        "batched_sweep", rng, loss_change={"batched_sweep": True},
+        expect=BATCHED_LAUNCHES)
+    add(launches)
+    print(f"options (b) peak memory (GiB) on {gpu}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in peaks.items()))
+    add(wire_phase(rng, gpu))
+    add(train_wire_ab(seed, work, train_data))
+    print(f"phase 11 options and wires: {time.perf_counter() - t_phase:.1f} "
+          f"s; launches {total}")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3478,13 +3902,14 @@ def main(argv=None):
         registry_launches, ms_linear, ms_linear_window = registry_phase(
             args.seed, work, train_data, per_window, gpu)
         par_launches, par_times = parallel_phase(args.seed, work, runid)
+        option_launches = options_phase(args.seed, work, train_data, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
              "train": train_launches, "train_cli": cli_launches,
              "eval_cli": eval_cli_launches, "registry": registry_launches,
-             "parallel": par_launches}
+             "parallel": par_launches, "options": option_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):

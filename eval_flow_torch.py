@@ -26,8 +26,10 @@ rank streams the same batches and runs every collective; rank 0 alone reads
 the metrics back and writes ``metrics_*.yml``, the PNGs and the submission
 tree.
 
-``loss.matmul_precision``, ``loss.warp_backend`` and ``runtime.*`` parse
-and do nothing.
+The ``runtime`` wires are the JAX pipeline's (``pipeline/eval.py``):
+``packed_wire`` and ``u32_wire`` on by default, ``probe_wire`` off.
+``loss.matmul_precision``, ``loss.warp_backend`` and the other
+``runtime`` keys parse and do nothing.
 """
 
 import argparse
@@ -132,6 +134,7 @@ def test(args, config_parser: YAMLParser, device="cuda"):
             for batch, meta in tm.wrap(prefetcher, "wait_batch"):
                 sequence = meta["sequence"]
                 pipe.cur_ridx = meta["remap_idx"]
+                pipe.cur_rect = meta.get("rect_map")
 
                 if pipe.vis.bars and is_main:
                     if bar is None:

@@ -8,9 +8,12 @@ of a train config from tracked run params (``ast.literal_eval``, never
   * configs are copied with ``copy.deepcopy``, so only :meth:`YAMLParser.
     parse_config` needs PyYAML (imported there);
   * :meth:`YAMLParser.apply_runtime` has no compilation cache to set and
-    does nothing. The JAX package's performance keys
-    (``loss.matmul_precision``, ``loss.warp_backend``, ``loss.scan_unroll``
-    and ``runtime.*``) parse and change nothing here.
+    does nothing. Of the JAX package's performance keys, the port's
+    pipelines read ``runtime.packed_wire``, ``runtime.u32_wire`` and
+    ``runtime.probe_wire``; ``loss.matmul_precision``,
+    ``loss.warp_backend``, ``loss.scan_unroll``,
+    ``loss.triangular_warp``, ``loss.warp_remat`` and the other
+    ``runtime`` keys parse and change nothing here.
 """
 
 from __future__ import annotations

@@ -272,6 +272,20 @@ class H5Loader(BaseStreamLoader):
             for lane in self.lanes
         ])
 
+    def rectify_values(self) -> Optional[np.ndarray]:
+        """Current per-lane forward rectification maps, stacked ``[B, H,
+        W, 2]`` float32 in the file's layout ``map[y_raw, x_raw] = (x_rect,
+        y_rect)``: the table of the u32 event wire's lookup
+        (``ops.unpack_event_wire``), the one the host's
+        ``base.rectify_events`` reads. ``None`` when any lane has no map.
+        Valid since the last lane rollover, like :meth:`remap_indices`.
+        Coordinate flips transform the looked-up values after this table,
+        so a producer must not use it under Horizontal/Vertical flips."""
+        if any(lane.rectify_map is None for lane in self.lanes):
+            return None
+        return np.stack([lane.rectify_map.astype(np.float32)
+                         for lane in self.lanes])
+
     # -------------------------------------------------------- event access
 
     def _num_events(self, lane):

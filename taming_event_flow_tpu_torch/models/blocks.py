@@ -2,12 +2,19 @@
 of ``taming_event_flow_tpu/models/blocks.py``.
 
 Submodule names follow the reference torch state_dict
-(``taming_event_flow_tpu/models/port.py:9-14``): ``conv2d`` inside conv
-layers, ``reset_gate``/``update_gate``/``out_gate`` inside the ConvGRU,
-``conv1``/``conv2`` inside residual blocks. Initialisation matches the JAX
-package: feed-forward convs uniform ``+-sqrt(1 / in_channels)`` (or
-``w_scale``) with zero bias, ConvGRU gates orthogonal with zero bias; all
-of it drawn from an explicit ``torch.Generator`` (:func:`init_weights`).
+(``taming_event_flow_tpu/models/port.py:9-14``): ``conv2d`` and
+``norm_layer`` inside conv layers, ``reset_gate``/``update_gate``/
+``out_gate`` inside the ConvGRU, ``conv1``/``conv2`` inside residual
+blocks. Initialisation matches the JAX package: feed-forward convs uniform
+``+-sqrt(1 / in_channels)`` (or ``w_scale``) with zero bias, ConvGRU gates
+orthogonal with zero bias, norm scale one and bias zero; all of it drawn
+from an explicit ``torch.Generator`` (:func:`init_weights`).
+
+Every convolution is a :class:`Conv2d`, which follows Flax's ``dtype``:
+with a compute dtype set (:func:`set_compute_dtype`, the model's
+``compute_dtype``) it casts its input, weight and bias to it and returns
+that dtype, the parameters staying float32; the elementwise ops around it
+then follow type promotion, as JAX's do.
 """
 
 from __future__ import annotations
@@ -33,13 +40,59 @@ def get_activation(name: Optional[str]):
 
 
 def _check_norm(norm):
-    if norm is not None:
+    if norm == "BN":
         raise NotImplementedError(
-            f"norm={norm!r} is not ported yet (ROADMAP.md, registry variants)")
+            "norm='BN' is not ported: the JAX trainer cannot train it "
+            "(ROADMAP.md, section 3)")
+    if norm not in (None, "IN"):
+        raise ValueError(f"Unknown norm {norm!r}")
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with Flax's compute dtype: when ``compute_dtype`` is
+    set, the input, weight and bias are cast to it (the cast of the
+    parameters is differentiable, so their gradients stay float32), and
+    the bias is added to the rounded convolution, as ``flax.linen.Conv``
+    adds it (a fused bias would round once, not twice)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt)[:, None, None]
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Set the compute dtype (a ``torch.dtype``, a name such as
+    ``"bfloat16"``, or ``None`` for none) of every :class:`Conv2d` in
+    ``module``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+
+
+def instance_norm(norm: nn.GroupNorm, x):
+    """Flax's ``GroupNorm(group_size=1)``: statistics in float32 (its
+    ``force_float32_reductions``), the output in the promoted dtype of the
+    input and the parameters (float32 after a bf16 conv, bf16 in a model
+    cast to bf16 whole)."""
+    out = F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
+                       norm.bias.float(), norm.eps)
+    return out.to(torch.promote_types(x.dtype, norm.weight.dtype))
 
 
 class ConvLayer(nn.Module):
-    """Conv + optional activation (reference ``submodules.py:8-62``)."""
+    """Conv + optional instance norm + optional activation (reference
+    ``submodules.py:8-62``). ``norm="IN"`` normalises each channel of each
+    sample over its map, as the JAX package's ``nn.GroupNorm(group_size=
+    1)`` (epsilon 1e-6, Flax's default) after the conv."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
@@ -47,8 +100,10 @@ class ConvLayer(nn.Module):
                  w_scale: Optional[float] = None):
         super().__init__()
         _check_norm(norm)
-        self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size,
-                                stride=stride, padding=kernel_size // 2)
+        self.conv2d = Conv2d(in_channels, out_channels, kernel_size,
+                             stride=stride, padding=kernel_size // 2)
+        self.norm_layer = (nn.GroupNorm(out_channels, out_channels, eps=1e-6)
+                           if norm == "IN" else None)
         self.activation = get_activation(activation)
         self.w_scale = w_scale
 
@@ -61,6 +116,8 @@ class ConvLayer(nn.Module):
 
     def forward(self, x):
         x = self.conv2d(x)
+        if self.norm_layer is not None:
+            x = instance_norm(self.norm_layer, x)
         return x if self.activation is None else self.activation(x)
 
 
@@ -72,10 +129,9 @@ class ConvGRU(nn.Module):
         super().__init__()
         pad = kernel_size // 2
         cin = input_size + hidden_size
-        self.reset_gate = nn.Conv2d(cin, hidden_size, kernel_size, padding=pad)
-        self.update_gate = nn.Conv2d(cin, hidden_size, kernel_size,
-                                     padding=pad)
-        self.out_gate = nn.Conv2d(cin, hidden_size, kernel_size, padding=pad)
+        self.reset_gate = Conv2d(cin, hidden_size, kernel_size, padding=pad)
+        self.update_gate = Conv2d(cin, hidden_size, kernel_size, padding=pad)
+        self.out_gate = Conv2d(cin, hidden_size, kernel_size, padding=pad)
 
     def init_weights(self, gen: torch.Generator):
         for gate in (self.reset_gate, self.update_gate, self.out_gate):
@@ -109,15 +165,17 @@ class RecurrentConvLayer(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Two convs + identity shortcut (reference ``submodules.py:155-227``)."""
+    """Two convs + identity shortcut (reference ``submodules.py:155-227``).
+    As in the JAX package, ``norm="IN"`` adds no norm here (only BN would
+    drop the biases there)."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  activation: Optional[str] = "relu", norm=None):
         super().__init__()
         _check_norm(norm)
         pad = kernel_size // 2
-        self.conv1 = nn.Conv2d(channels, channels, kernel_size, padding=pad)
-        self.conv2 = nn.Conv2d(channels, channels, kernel_size, padding=pad)
+        self.conv1 = Conv2d(channels, channels, kernel_size, padding=pad)
+        self.conv2 = Conv2d(channels, channels, kernel_size, padding=pad)
         self.activation = get_activation(activation)
 
     def init_weights(self, gen: torch.Generator):

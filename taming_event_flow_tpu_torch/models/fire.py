@@ -5,7 +5,8 @@ A full-resolution stack with no downsampling and no padding. The recurrent
 model runs head conv -> ConvGRU -> conv -> ConvGRU -> conv -> 1x1
 prediction, the stateless one four convs and the prediction. The output has
 one scale, ``[1, B, H, W, 2]`` in (x, y) order, so the losses and metrics
-take it as they take RecEVFlowNet's flows.
+take it as they take RecEVFlowNet's flows. ``compute_dtype`` is
+RecEVFlowNet's (:mod:`.model`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .blocks import ConvGRU, ConvLayer
+from .blocks import ConvGRU, ConvLayer, set_compute_dtype
 
 
 def _flow(pred):
@@ -30,7 +31,8 @@ class RecFireFlowNet(nn.Module):
     def __init__(self, num_bins: int = 2, base_channels: int = 32,
                  kernel_size: int = 3,
                  final_activation: Optional[str] = "tanh",
-                 final_w_scale: Optional[float] = None):
+                 final_w_scale: Optional[float] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         c, k = base_channels, kernel_size
         self.base_channels = c
@@ -41,6 +43,7 @@ class RecFireFlowNet(nn.Module):
         self.conv2 = ConvLayer(c, c, k)
         self.pred = ConvLayer(c, 2, 1, activation=final_activation,
                               w_scale=final_w_scale)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x, state):
         x = self.head(x.permute(0, 3, 1, 2).contiguous())
@@ -63,7 +66,8 @@ class FireFlowNet(nn.Module):
     def __init__(self, num_bins: int = 2, base_channels: int = 32,
                  kernel_size: int = 3,
                  final_activation: Optional[str] = "tanh",
-                 final_w_scale: Optional[float] = None):
+                 final_w_scale: Optional[float] = None,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         c, k = base_channels, kernel_size
         self.head = ConvLayer(num_bins, c, k)
@@ -72,6 +76,7 @@ class FireFlowNet(nn.Module):
         self.conv3 = ConvLayer(c, c, k)
         self.pred = ConvLayer(c, 2, 1, activation=final_activation,
                               w_scale=final_w_scale)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x, state=()):
         x = x.permute(0, 3, 1, 2).contiguous()

@@ -6,6 +6,11 @@ Public tensors keep the JAX package's layout: the input is NHWC
 ``[B, H, W, C]`` and the flows come back ``[S, B, H, W, 2]`` in (x, y)
 order, finest scale last. The networks run NCHW inside, and a recurrent
 carry is a tuple of NCHW maps (``()`` for a stateless model).
+
+``compute_dtype`` (e.g. ``"bfloat16"``) is Flax's: the parameters stay
+float32 and every convolution computes in that dtype
+(:func:`.blocks.set_compute_dtype`); the flows come back float32, and a
+recurrent carry stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import resolve_device
-from .blocks import init_weights
+from .blocks import init_weights, set_compute_dtype
 from .fire import FireFlowNet, RecFireFlowNet
 from .unet import MultiResUNet, MultiResUNetRecurrent
 
@@ -69,7 +74,8 @@ class RecEVFlowNet(nn.Module):
                  norm=None, use_upsample_conv: bool = True,
                  kernel_size: int = 3, channel_multiplier: float = 2,
                  final_activation: Optional[str] = "tanh",
-                 final_w_scale: Optional[float] = None, min_size: int = 16):
+                 final_w_scale: Optional[float] = None, min_size: int = 16,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         self.num_encoders = num_encoders
         self.min_size = min_size
@@ -82,6 +88,7 @@ class RecEVFlowNet(nn.Module):
             kernel_size=kernel_size, channel_multiplier=channel_multiplier,
             final_activation=final_activation, final_w_scale=final_w_scale,
         )
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x, state):
         x, pads = pad_to_multiple(x, self.min_size)
@@ -137,10 +144,6 @@ def build_model(model_config: Dict[str, Any], num_bins: int = 2,
     name = model_config.get("name", "RecEVFlowNet")
     if name not in _MODEL_REGISTRY:
         raise ValueError(f"Unknown model: {name!r}")
-    if model_config.get("compute_dtype"):
-        raise NotImplementedError(
-            "model.compute_dtype is not ported yet (ROADMAP.md); the eval "
-            "path's bf16 forward is metrics.inference_dtype")
     cls = _MODEL_REGISTRY[name]
     takes = inspect.signature(cls.__init__).parameters
     kwargs = {k: v for k, v in model_config.items() if k in takes

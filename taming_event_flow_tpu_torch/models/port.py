@@ -15,6 +15,9 @@ out]`` to torch ``[out, in, kh, kw]``::
   arch/pred_<i>/Conv_0                    -> arch.preds.<i>.conv2d
   <head|conv1|conv2|conv3|pred>/Conv_0    -> <name>.conv2d        (Fire)
   <gru1|gru2>/<gate>                      -> <name>.<gate>         (Fire)
+
+With ``norm: IN`` each conv layer's ``GroupNorm_0`` (beside its ``Conv_0``)
+maps to the layer's ``norm_layer``, its ``scale`` to ``weight``.
 """
 
 from __future__ import annotations
@@ -25,19 +28,23 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+# a conv layer's two Flax children and their torch names
+_LAYER = r"(Conv_0|GroupNorm_0)"
+_CHILD = {"Conv_0": "conv2d", "GroupNorm_0": "norm_layer"}
+
 _PATTERNS = [
-    (re.compile(r"^arch/encoder_(\d+)/conv/Conv_0$"),
-     r"arch.encoders.\1.conv.conv2d"),
+    (re.compile(rf"^arch/encoder_(\d+)/conv/{_LAYER}$"),
+     r"arch.encoders.\1.conv.\2"),
     (re.compile(r"^arch/encoder_(\d+)/recurrent_block/"
                 r"(reset_gate|update_gate|out_gate)$"),
      r"arch.encoders.\1.recurrent_block.\2"),
-    (re.compile(r"^arch/encoder_(\d+)/Conv_0$"), r"arch.encoders.\1.conv2d"),
+    (re.compile(rf"^arch/encoder_(\d+)/{_LAYER}$"), r"arch.encoders.\1.\2"),
     (re.compile(r"^arch/resblock_(\d+)/(conv1|conv2)$"),
      r"arch.resblocks.\1.\2"),
-    (re.compile(r"^arch/decoder_(\d+)/conv/Conv_0$"),
-     r"arch.decoders.\1.conv2d"),
-    (re.compile(r"^arch/pred_(\d+)/Conv_0$"), r"arch.preds.\1.conv2d"),
-    (re.compile(r"^(head|conv1|conv2|conv3|pred)/Conv_0$"), r"\1.conv2d"),
+    (re.compile(rf"^arch/decoder_(\d+)/conv/{_LAYER}$"),
+     r"arch.decoders.\1.\2"),
+    (re.compile(rf"^arch/pred_(\d+)/{_LAYER}$"), r"arch.preds.\1.\2"),
+    (re.compile(r"^(head|conv1|conv2|conv3|pred)/(Conv_0)$"), r"\1.\2"),
     (re.compile(r"^(gru1|gru2)/(reset_gate|update_gate|out_gate)$"),
      r"\1.\2"),
 ]
@@ -63,7 +70,8 @@ def flax_params_to_state_dict(params_np: Mapping) -> Dict[str, torch.Tensor]:
         module = "/".join(path)
         for pat, repl in _PATTERNS:
             if pat.match(module):
-                name = pat.sub(repl, module)
+                name = re.sub(_LAYER + "$", lambda c: _CHILD[c.group(1)],
+                              pat.sub(repl, module))
                 break
         else:
             raise KeyError(f"No port module for Flax parameter {module}")
@@ -73,6 +81,8 @@ def flax_params_to_state_dict(params_np: Mapping) -> Dict[str, torch.Tensor]:
                 np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1))))
         elif leaf == "bias":
             out[f"{name}.bias"] = torch.from_numpy(value.copy())
+        elif leaf == "scale" and name.endswith(".norm_layer"):
+            out[f"{name}.weight"] = torch.from_numpy(value.copy())
         else:
             raise KeyError(f"Unexpected Flax leaf {module}/{leaf}")
     return out

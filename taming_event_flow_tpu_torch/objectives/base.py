@@ -23,11 +23,12 @@ class LossConfig(NamedTuple):
     ``passes_loss`` is the *effective* window length: callers have already
     doubled it for ``iterative_mode == "four"``.
 
-    Of the JAX package's performance knobs the port runs the defaults:
-    ``triangular_warp=True``, ``batched_sweep=False`` and
-    ``warp_remat=False``; :func:`..iterative.iterative_loss` raises for the
-    others (queued in ROADMAP.md). ``scan_unroll`` tunes XLA's scans and has
-    no effect here: the port's passes and warp steps are Python loops.
+    Of the JAX package's formulation knobs, ``batched_sweep`` selects the
+    batched deblurring sweep (:mod:`.iterative`). ``triangular_warp``,
+    ``warp_remat`` and ``scan_unroll`` parse and change nothing: they shape
+    XLA's scans, and the port's warp steps are Python loops that build the
+    triangular table (the scan table's values) and keep no residuals for
+    remat to drop.
     """
 
     res: Tuple[int, int]

@@ -2,9 +2,16 @@
 counterpart of ``taming_event_flow_tpu/objectives/iterative.py``
 (reference ``loss/flow.py:415-746``).
 
-The port runs the JAX package's default formulation: the triangular warp
-table (per timeline step, only the windows that have joined are warped)
-and the looped per-tref deblurring sweep, one 4-channel IWE splat per tref.
+The port builds the JAX package's default warp table, the triangular one
+(per timeline step, only the windows that have joined are warped), and
+runs either deblurring sweep: the looped one, one 4-channel IWE splat per
+tref, or the batched one (``batched_sweep``: one splat per (scale, window)
+over ``[T*B]`` lanes). ``triangular_warp=False`` and ``warp_remat`` parse
+and select that same table, as ``scan_unroll`` parses and does nothing:
+the scan table exists in JAX for ``lax.scan`` and computes the same table
+(its locations within 1e-5, its masks exactly), and eager PyTorch keeps no
+per-step residuals for remat to drop (a step's saved tensors are the
+table entries the loss reads anyway).
 Grad and detached events share one tensor with a per-event ``grad_mask``:
 recorded table locations pass through ``where(grad_mask > 0, loc,
 loc.detach())``, and every mask the warp produces is detached, so gradients
@@ -121,14 +128,39 @@ def warp_table_triangular(flow_maps, event_loc, event_ts, pol_mask, res,
     return torch.stack(table_loc), torch.stack(table_mask)
 
 
-def _unported(cfg: LossConfig):
-    for flag, what in ((not cfg.triangular_warp,
-                        "triangular_warp=False (the scan warp table)"),
-                       (cfg.batched_sweep, "batched_sweep=True"),
-                       (cfg.warp_remat, "warp_remat=True")):
-        if flag:
-            raise NotImplementedError(
-                f"iterative_loss: {what} is not ported yet; see ROADMAP.md")
+def _sweep_batched(tbl_loc, tbl_mask, ts, shared_mask, low_pass, high_pass,
+                   low_tref, high_tref, delta, cfg: LossConfig, event_axis):
+    """The deblurring sweep of one (scale, window) as ONE splat (JAX
+    ``iterative.py:_sweep_batched``): the T trefs ride the splat's batch
+    axis, ``[T*B, Kf*N]``, and a window outside a tref's extent
+    ``[tref - delta, tref + delta)`` gets a zero mask, which drops it from
+    the IWE, the ts-IWE and the nonzero-pixel count as the looped slicing
+    does. ``focus_loss`` sums over its batch axis, so one call over
+    ``[T*B]`` is the looped sum."""
+    t_count, kf = high_tref - low_tref, high_pass - low_pass
+    b, n = tbl_loc.shape[2], tbl_loc.shape[3]
+    wl = tbl_loc[low_tref:high_tref, low_pass:high_pass]  # [T, Kf, B, N, 2]
+    if shared_mask is not None:
+        wm = shared_mask[low_pass:high_pass][None].expand(wl.shape)
+    else:
+        wm = tbl_mask[low_tref:high_tref, low_pass:high_pass]
+    dev = ts.device
+    trefs = torch.arange(low_tref, high_tref, dtype=ts.dtype, device=dev)
+    wabs = torch.arange(low_pass, high_pass, dtype=ts.dtype, device=dev)
+    ext = ((wabs[None, :] >= trefs[:, None] - delta)
+           & (wabs[None, :] < trefs[:, None] + delta)).to(wl.dtype)
+    wm = wm * ext[:, :, None, None, None]
+    wts = ts[low_pass:high_pass][None].expand(t_count, kf, b, n, 1)
+    norm_ts = 1.0 - torch.abs(trefs[:, None, None, None, None] - wts) / delta
+
+    def flat(x):
+        return x.permute(0, 2, 1, 3, 4).reshape(t_count * b, kf * n,
+                                                x.shape[-1])
+
+    iwe, iwe_ts = iwe_with_ts(flat(wl), flat(wm), flat(norm_ts), cfg.res,
+                              event_axis)
+    iwe_ts_norm = iwe_ts / (iwe + 1e-9)
+    return focus_loss(iwe, iwe_ts_norm, cfg.loss_scaling)
 
 
 def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
@@ -150,7 +182,6 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
         rank's splats (see ``parallel.event.reduce_gradients``).
     :return: scalar loss.
     """
-    _unported(cfg)
     p, s_scales = flows.shape[0], flows.shape[1]
     if p != cfg.passes_loss:
         raise ValueError(f"flows hold {p} passes, the config "
@@ -180,6 +211,13 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
                     # excluded everywhere (reference ``loss/flow.py:671-681``)
                     shared_mask = torch.prod(tbl_mask[low_tref:high_tref],
                                              dim=0)  # [P, B, N, 2]
+                if cfg.batched_sweep:
+                    loss_update = loss_update + _sweep_batched(
+                        tbl_loc, tbl_mask, ts,
+                        shared_mask if cfg.border_compensation else None,
+                        low_pass, high_pass, low_tref, high_tref, delta,
+                        cfg, event_axis)
+                    continue
                 for tref in range(low_tref, high_tref):
                     low_ext = max(low_pass, tref - delta)
                     high_ext = min(high_pass, tref + delta)

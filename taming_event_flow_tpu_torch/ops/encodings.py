@@ -1,13 +1,15 @@
-"""Event -> image encodings: the PyTorch counterpart of
-``taming_event_flow_tpu/ops/encodings.py`` (plain ``index_add_``, where the
-JAX package has XLA's scatter; the rectification remap of the count input
-is the row gather kernel).
+"""Event -> image encodings and the u32 event wire: the PyTorch counterpart
+of ``taming_event_flow_tpu/ops/encodings.py`` (plain ``index_add_``, where
+the JAX package has XLA's scatter; the rectification remap of the count
+input and the wire's rectified-coordinate lookup are the row gather
+kernel).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .cuda_warp import row_gather
@@ -113,3 +115,51 @@ def derive_count_input(event_list, res: Tuple[int, int], raw_xy=None,
                  * rows)[:, None]
     out = row_gather(img.view(lanes * rows, 2), src.reshape(-1))
     return out.reshape(*lead, h, w, 2)
+
+
+def pack_event_wire_np(ys, xs, ps):
+    """Host-side u32 packing of integer event coordinates and polarity:
+    ``y << 16 | x << 2 | pcode``, ``pcode`` 1 for positive, 2 for negative,
+    0 for padding rows (``p == 0``). Exact for integer ``y < 65536`` and
+    ``x < 16384``; one u32 replaces the y, x and p floats of an event.
+
+    :param ys, xs: integer-valued arrays (any float or int dtype).
+    :param ps: polarity +-1 (0 for padding).
+    :return: uint32 array of ``ys.shape``.
+    """
+    pcode = np.where(ps > 0, 1, 0) + np.where(ps < 0, 2, 0)
+    return ((ys.astype(np.uint32) << 16) | (xs.astype(np.uint32) << 2)
+            | pcode.astype(np.uint32))
+
+
+def unpack_event_wire(ts, yxp, rect=None):
+    """The device twin of :func:`pack_event_wire_np`: rebuild the
+    ``[..., N, 4]`` (ts, y, x, p) event list and the raw integer
+    coordinates.
+
+    :param ts: ``[..., N]`` float32 window-normalised timestamps.
+    :param yxp: ``[..., N]`` packed words, uint32 or int32 (the same bits:
+        torch's uint32 has no shifts, so the words are read as int32).
+    :param rect: optional ``[H, W, 2]`` float32 forward rectification map
+        in the file's layout, ``rect[y_raw, x_raw] = (x_rect, y_rect)``
+        (x first). When given, the event list carries the rectified
+        coordinates, looked up by one row gather of the ``[H*W, 2]`` table
+        (:func:`..cuda_warp.row_gather`: the kernel for a CUDA tensor):
+        bitwise the host's lookup, which reads the same float32 table.
+    :return: ``(event_list [..., N, 4], raw_yx [..., N, 2] float32)``, the
+        latter :func:`derive_count_input`'s ``raw_xy``.
+    """
+    words = yxp.view(torch.int32) if yxp.dtype == torch.uint32 else yxp
+    yi = (words >> 16) & 0xFFFF
+    xi = (words >> 2) & 0x3FFF
+    pcode = words & 3
+    p = (pcode == 1).float() - (pcode == 2).float()
+    y, x = yi.float(), xi.float()
+    raw_yx = torch.stack([y, x], dim=-1)
+    if rect is not None:
+        h, w = rect.shape[0], rect.shape[1]
+        idx = (yi * w + xi).reshape(-1).to(torch.int32)
+        looked = row_gather(rect.reshape(h * w, 2), idx).reshape(
+            yxp.shape + (2,))
+        y, x = looked[..., 1], looked[..., 0]  # the file's layout is (x, y)
+    return torch.stack([ts, y, x, p], dim=-1), raw_yx

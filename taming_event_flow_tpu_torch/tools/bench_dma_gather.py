@@ -111,10 +111,13 @@ def device_ms(fn, reps: int = 20, kernel=None, traces: int = 5) -> float:
     return ms
 
 
-def bound_ms(m: int, width: int) -> float:
-    """Bytes bound: each index read once, each gathered row read once and
-    written once, over the card's memory rate."""
-    return m * (2 * width * 4 + 4) / PEAK_BYTES_PER_S * 1e3
+def bound_ms(m: int, width: int, rows: int) -> float:
+    """Bytes bound: each index read once, each output row written once,
+    and at most each table row read once (``min(m, rows)`` rows: a table
+    smaller than the index stream is read whole, no more), over the card's
+    memory rate."""
+    nbytes = m * (width * 4 + 4) + min(m, rows) * width * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def measure(table, idx, reps: int = 50, plain_reps: int = 10):
@@ -141,7 +144,7 @@ def measure(table, idx, reps: int = 50, plain_reps: int = 10):
         "device_ms": device_ms(lambda: row_gather(table, idx)),
         "library_device_ms": device_ms(
             lambda: torch.index_select(table, 0, idx)),
-        "bound_ms": bound_ms(idx.shape[0], table.shape[1]),
+        "bound_ms": bound_ms(idx.shape[0], table.shape[1], table.shape[0]),
     }
 
 

@@ -11,7 +11,12 @@ from .step import (
     run_passes,
     unpack_window,
 )
-from .window import WindowGrouper, pad_batch_events, stack_window
+from .window import (
+    WindowGrouper,
+    pack_net_input,
+    pad_batch_events,
+    stack_window,
+)
 
 __all__ = [
     "TrainState",
@@ -27,5 +32,6 @@ __all__ = [
     "reset_carry",
     "pad_batch_events",
     "stack_window",
+    "pack_net_input",
     "WindowGrouper",
 ]

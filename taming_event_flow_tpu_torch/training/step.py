@@ -36,7 +36,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..objectives import LOSS_REGISTRY, LossConfig
-from ..ops.encodings import derive_count_input
+from ..ops.encodings import derive_count_input, unpack_event_wire
 from ..utils.device import resolve_device
 
 
@@ -112,17 +112,28 @@ def init_train_state(model, batch: int, height: int, width: int,
 
 def unpack_window(window: Dict[str, torch.Tensor],
                   res: Optional[tuple] = None) -> Dict[str, torch.Tensor]:
-    """The window a train step consumes, cast to float32 where the loader's
-    arrays may be narrower (``step.py:53-97``). A window without
-    ``net_input`` derives the count encoding from its event lists
-    (:func:`..ops.encodings.derive_count_input`, the loader's construction;
-    ``res`` is required then), a rectified one from its raw coordinates
-    ``event_raw_xy`` and its rectification index ``remap_idx``. The packed
-    ``event_txy`` wire is not ported (ROADMAP.md, packed wire formats)."""
+    """The window a train step consumes (``step.py:53-97``): the packed
+    ``event_txy`` wire (``training.window.stack_window(packed=True)``)
+    restored to the plain window, and everything cast to float32 where the
+    wire narrows it (a no-op for a plain float32 window). The packed wire
+    is exact: the int8 polarity is +-1 or 0, ``pol_mask`` is its ``[p > 0,
+    p < 0]``, the loader's own construction, and a narrowed count input
+    holds integers. A window without ``net_input`` derives the count
+    encoding from its event lists (:func:`..ops.encodings.
+    derive_count_input`, the loader's construction; ``res`` is required
+    then), a rectified one from its raw coordinates ``event_raw_xy`` and
+    its rectification index ``remap_idx``."""
     if "event_txy" in window:
-        raise NotImplementedError(
-            "the packed event_txy window wire is not ported yet; see "
-            "ROADMAP.md (packed wire formats)")
+        p = window["event_p"].float()
+        window = {
+            "net_input": window.get("net_input"),
+            "event_list": torch.cat([window["event_txy"], p[..., None]],
+                                    dim=-1),
+            "pol_mask": torch.stack([p > 0, p < 0], dim=-1),
+            "grad_mask": window["grad_mask"],
+            "event_raw_xy": window.get("event_raw_xy"),
+            "remap_idx": window.get("remap_idx"),
+        }
     net = window.get("net_input")
     if net is None:
         if res is None:
@@ -277,7 +288,10 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
     with pass-stacked ``xs [P,B,H,W,C]``, ``evs [P,B,N,4]``,
     ``pols [P,B,N,2]``, ``emasks [P,B,H,W,1]`` (any but ``evs`` may be
     ``None``; a rectified window derives from ``raw [P,B,N,2]`` and
-    ``ridx``, see :func:`make_eval_step`). ``reset_first`` resets
+    ``ridx``, see :func:`make_eval_step`). ``evs`` may be the u32 event
+    wire, ``{"ts" [P,B,N], "yxp" [P,B,N][, "rect" [H,W,2]]}``
+    (:func:`..ops.encodings.unpack_event_wire`); with ``rect`` the count
+    input derives from the unpacked raw coordinates. ``reset_first`` resets
     ``vstate`` before the first pass; ``extras(vstate, aux)`` adds a 4th
     return value; ``mesh`` as in :func:`make_eval_step`.
     """
@@ -291,6 +305,14 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
                ridx=None):
         if reset_first:
             vstate = val.reset(vstate)
+        if isinstance(evs, dict):
+            # the u32 event wire: a rectified window's coordinates come
+            # from the sequence's forward map, and its count input from
+            # the raw integers
+            rect = evs.get("rect")
+            evs, raw_yx = unpack_event_wire(evs["ts"], evs["yxp"], rect)
+            if rect is not None:
+                raw = raw_yx
         xs, pols, emasks = _derive_inputs(val.cfg.res, evs, xs, pols, emasks,
                                           raw, ridx)
         if mesh is not None:

@@ -1,6 +1,6 @@
 """Host-side window assembly: the port's own copy of
-``taming_event_flow_tpu/training/window.py`` (``stack_window``,
-``pad_batch_events`` and ``WindowGrouper``)."""
+``taming_event_flow_tpu/training/window.py`` (``stack_window`` with both
+wires, ``pack_net_input``, ``pad_batch_events`` and ``WindowGrouper``)."""
 
 from __future__ import annotations
 
@@ -9,20 +9,45 @@ from typing import Dict, List
 import numpy as np
 
 
-def stack_window(batches: List[Dict[str, np.ndarray]],
-                 packed: bool = False) -> Dict[str, np.ndarray]:
+def pack_net_input(net: np.ndarray) -> np.ndarray:
+    """Narrow an integer-valued (count) net input to the smallest dtype
+    that holds it exactly: uint8 for the usual per-pixel counts, uint16 for
+    the heavy tail; past 65535 it stays float32. The step casts it back to
+    float32, exact for integers in range."""
+    m = net.max()
+    if m < 256:
+        return net.astype(np.uint8)
+    if m < np.iinfo(np.uint16).max + 1:
+        return net.astype(np.uint16)
+    return net
+
+
+def stack_window(batches: List[Dict[str, np.ndarray]], packed: bool = False,
+                 net_compact: bool = False,
+                 derive_net: bool = False) -> Dict[str, np.ndarray]:
     """Stack P collated batches into ``[P, B, ...]`` arrays for the train
     step (``training.step.make_train_step``), re-padding ragged event
     tensors to the window's longest bucket.
 
-    The plain wire only: the count input ships as the loader built it (the
-    host-remapped one for a rectified lane). ``packed=True``, the JAX
-    package's packed wire, raises.
+    The plain wire ships the loader's arrays as they are. ``packed=True``
+    is the JAX package's packed wire, exact by construction
+    (``training.step.unpack_window`` restores the plain window on the
+    device):
+
+      * ``event_txy`` ``[P, B, N, 3]`` float32 and ``event_p`` ``[P, B, N]``
+        int8 replace ``event_list`` (polarity is +-1 or 0);
+      * ``pol_mask`` is not shipped: it is ``[p > 0, p < 0]``, the
+        loader's own construction;
+      * ``grad_mask`` ships as bool (its values are 0 and 1);
+      * with ``net_compact`` (count inputs, integer by construction) the
+        net input ships as uint8/uint16 when it fits
+        (:func:`pack_net_input`); voxel inputs are fractional, so leave it
+        off for them;
+      * with ``derive_net`` (count inputs, no rectified lane: a rectified
+        lane's remap can change mid-window at a rollover) the net input is
+        not shipped at all, and the step rebuilds it from the event lists
+        (``ops.encodings.derive_count_input``).
     """
-    if packed:
-        raise NotImplementedError(
-            "the packed window wire is not ported yet; see ROADMAP.md "
-            "(packed wire formats, item 6)")
     n = max(b["event_list"].shape[1] for b in batches)
 
     def pad(arr):
@@ -33,12 +58,30 @@ def stack_window(batches: List[Dict[str, np.ndarray]],
         padded[:, :k] = arr
         return padded
 
-    return {
-        "net_input": np.stack([b["net_input"] for b in batches]),
-        "event_list": np.stack([pad(b["event_list"]) for b in batches]),
-        "pol_mask": np.stack([pad(b["event_list_pol_mask"]) for b in batches]),
-        "grad_mask": np.stack([pad(b["grad_mask"]) for b in batches]),
-    }
+    if not packed:
+        return {
+            "net_input": np.stack([b["net_input"] for b in batches]),
+            "event_list": np.stack([pad(b["event_list"]) for b in batches]),
+            "pol_mask": np.stack([pad(b["event_list_pol_mask"])
+                                  for b in batches]),
+            "grad_mask": np.stack([pad(b["grad_mask"]) for b in batches]),
+        }
+
+    p_ct, b_ct = len(batches), batches[0]["event_list"].shape[0]
+    txy = np.zeros((p_ct, b_ct, n, 3), np.float32)
+    pol = np.zeros((p_ct, b_ct, n), np.int8)
+    grad = np.zeros((p_ct, b_ct, n, 1), bool)
+    for i, b in enumerate(batches):
+        ev = b["event_list"]
+        k = ev.shape[1]
+        txy[i, :, :k] = ev[..., :3]
+        pol[i, :, :k] = ev[..., 3]
+        grad[i, :, :k] = b["grad_mask"] != 0
+    out = {"event_txy": txy, "event_p": pol, "grad_mask": grad}
+    if not derive_net:
+        net = np.stack([b["net_input"] for b in batches])
+        out["net_input"] = pack_net_input(net) if net_compact else net
+    return out
 
 
 def pad_batch_events(batch: Dict[str, np.ndarray], n: int):

@@ -360,8 +360,11 @@ def test_stack_window_matches_jax(rng):
     ref = jwindow.stack_window(batches, packed=False)
     assert_batches_equal(ours, ref, "stack_window")
     assert ours["event_list"].shape == (3, 2, 512, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twindow.stack_window(batches, packed=True)
+    # the packed wire, array for array, in each of its forms
+    for kw in ({}, {"net_compact": True}, {"derive_net": True}):
+        assert_batches_equal(twindow.stack_window(batches, packed=True, **kw),
+                             jwindow.stack_window(batches, packed=True, **kw),
+                             f"stack_window packed {kw}")
     padded = twindow.pad_batch_events(batches[0], 600)
     assert_batches_equal(padded, jwindow.pad_batch_events(batches[0], 600),
                          "pad_batch_events")

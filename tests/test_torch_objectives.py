@@ -211,14 +211,15 @@ def value_and_grad(loss_fn, flows, inputs, cfg, **kw):
     {"triangular_warp": False}, {"batched_sweep": True},
     {"warp_remat": True}])
 def test_unported_knobs_raise(rng, tmp_path, knob):
-    """The three item-5 knobs still raise; an ``event_axis`` over a world
-    of one rank gives the loss and flow gradient of ``None``, bit for bit
-    (its all-reduces are the identity), in both losses."""
+    """The three knobs that once raised here (the scan table,
+    ``batched_sweep``, ``warp_remat``) now match the JAX loss with the same
+    knob; an ``event_axis`` over a world of one rank gives the loss and
+    flow gradient of ``None``, bit for bit (its all-reduces are the
+    identity), in both losses."""
     flows, events, pol, gm = make_inputs(rng, 2)
     cfg = tobj.LossConfig(res=RES, passes_loss=2, **knob)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tobj.iterative_loss(t(flows), t(events), t(pol), t(gm), cfg)
+    assert_match(*both(flows, events, pol, gm, passes_loss=2, **knob))
     # the Linear loss runs (it has none of these knobs)
     assert torch.isfinite(tobj.LOSS_REGISTRY["Linear"](
         t(flows), t(events), t(pol), t(gm), cfg))

@@ -116,20 +116,23 @@ def _assert_metrics_close(ours, ref):
         for k in ("fwl", "rsat", "aee"):
             np.testing.assert_allclose(float(o[k]), float(r[k]),
                                        err_msg=k, **METRIC_TOL)
-        # flow_bw on the DSEC u16 lattice: within one lattice step
-        assert o["flow_bw"].dtype == np.uint16
-        ref_bw = r["flow_bw"]
-        if ref_bw.dtype != np.uint16:  # the JAX pipeline's float32 wire
-            ref_bw = flow_to_u16(torch.tensor(ref_bw)).numpy()
-        diff = np.abs(o["flow_bw"].astype(np.int64)
-                      - ref_bw.astype(np.int64))
-        assert diff.max() <= 1
+        # flow_bw in the wire's dtype (the u16 lattice on the packed wire,
+        # float32 on the plain one), within one lattice step
+        assert o["flow_bw"].dtype == r["flow_bw"].dtype
+
+        def lattice(bw):
+            if bw.dtype == np.uint16:
+                return bw.astype(np.int64)
+            return flow_to_u16(torch.tensor(bw)).numpy().astype(np.int64)
+
+        assert np.abs(lattice(o["flow_bw"]) - lattice(r["flow_bw"])).max() \
+            <= 1
 
 
 @pytest.mark.parametrize("runtime,jump_at", [
     ({}, None),  # windowed, everything derived from the event lists
-    # the JAX pipeline ships net input, masks and flow_bw as float32;
-    # the port parses the key and derives them all the same
+    # the plain wire: net input and masks ship as the loader built them,
+    # flow_bw comes back float32, in both pipelines
     ({"packed_wire": False}, None),
     ({}, 2),  # ts jump mid-window: flush to the per-pass path
 ])
@@ -220,18 +223,24 @@ def test_flags_eval_time_gate(models):
 
 
 def test_runtime_keys_parse_and_linear_builds(models):
-    """The JAX pipeline's wire keys parse and change nothing: flow_bw comes
-    back on the u16 lattice either way. A Linear pipeline builds with the
-    Linear validation."""
+    """The JAX pipeline's wire keys parse and change no metric: the plain
+    wire (with the u32 and probe keys beside it) gives the packed one's
+    metrics bit for bit, and its flow_bw comes back float32, the packed
+    wire's u16 lattice its exact encoding. A Linear pipeline builds with
+    the Linear validation."""
     _, _, tm = models
     windows = [_window(9)]
     outs = [_drive(EvalPipeline(_config(vis=DSEC_VIS, runtime=runtime), tm,
                                 device="cpu"), windows)[0]
             for runtime in ({}, {"packed_wire": False, "u32_wire": True,
                                  "probe_wire": True})]
-    for k in ("fwl", "rsat", "aee", "flow_bw"):
+    for k in ("fwl", "rsat", "aee"):
         np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
-    assert outs[1]["flow_bw"].dtype == np.uint16
+    assert outs[0]["flow_bw"].dtype == np.uint16
+    assert outs[1]["flow_bw"].dtype == np.float32
+    np.testing.assert_array_equal(
+        flow_to_u16(torch.from_numpy(outs[1]["flow_bw"])).numpy(),
+        outs[0]["flow_bw"])
     pipe = EvalPipeline(_config(metrics={"warping": "Linear"}), tm,
                         device="cpu")
     assert isinstance(pipe.criteria, LinearValidation)

@@ -140,8 +140,19 @@ def test_window_without_net_input_derives_it(rng):
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="res"):
         unpack_window(torch_window(w))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        unpack_window({"event_txy": torch.zeros(1)})
+    # the packed event_txy wire restores the plain window
+    w["pol_mask"] = np.stack([w["event_list"][..., 3] > 0,
+                              w["event_list"][..., 3] < 0],
+                             axis=-1).astype(np.float32)
+    packed = {"event_txy": w["event_list"][..., :3],
+              "event_p": w["event_list"][..., 3].astype(np.int8),
+              "grad_mask": w["grad_mask"] != 0}
+    unpacked = unpack_window(torch_window(packed), res=RES)
+    for k in ("event_list", "pol_mask", "grad_mask"):
+        torch.testing.assert_close(unpacked[k], torch.from_numpy(w[k]),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(unpacked["net_input"], full["net_input"],
+                               rtol=0, atol=0)
 
 
 def test_carry_detaches(pair, rng):

@@ -311,9 +311,9 @@ def test_batch_stream_matches_jax(models, stream_files, monkeypatch):
     """Over a file with a GT gap and a rectified file, the port's
     ``batch_stream`` yields the JAX one's batches and metadata: sequence,
     ts, end_test, bar_iters, the rectification index, and ``ts_jump_reset``
-    set on the batch and cleared on the loader. The port stages no window
-    on the producer (the consumer stacks it), so its metadata holds those
-    keys alone."""
+    set on the batch and cleared on the loader, and the u32 wire's forward
+    rectification map. The port stages no window on the producer (the
+    consumer stacks it), so its metadata holds those keys alone."""
     monkeypatch.setattr(jbase, "cv2", None)  # the port's numpy remap
     jm, params, tm = models
     cfg = _stream_config(stream_files)
@@ -337,8 +337,13 @@ def test_batch_stream_matches_jax(models, stream_files, monkeypatch):
             rect += 1
             np.testing.assert_array_equal(meta["remap_idx"].numpy(),
                                           np.asarray(jmeta["remap_idx"]))
+        if jmeta["rect_map"] is None:
+            assert meta["rect_map"] is None
+        else:
+            np.testing.assert_array_equal(meta["rect_map"].numpy(),
+                                          np.asarray(jmeta["rect_map"]))
         assert set(meta) == {"sequence", "ts", "end_test", "bar_iters",
-                             "remap_idx"}, i
+                             "remap_idx", "rect_map"}, i
         jumps += bool(b["ts_jump_reset"].any())
     assert jumps >= 1 and rect >= 2
     assert sum("staged" in m for _, m in ref) >= 2  # the JAX producer's

@@ -23,8 +23,10 @@ clip (``parallel/event.py``). Only rank 0 writes the run, the checkpoint and
 TensorBoard, and prints.
 
 Pipeline: the loader streams per-lane windows on the host behind a
-prefetch thread; every ``passes_loss`` windows are stacked into one window,
-copied to the device, and one train step runs the model over all passes,
+prefetch thread; every ``passes_loss`` windows are stacked into one window
+(on one device the packed wire of ``runtime.packed_wire``, default on:
+``training.window.stack_window``), copied to the device, and one train step
+runs the model over all passes,
 evaluates the contrast-max loss (``loss.warping``: Iterative or Linear),
 backprops, clips and applies Adam. Every model of the registry trains
 (``model.name``), on count or voxel inputs (``data.voxel``). Sequence
@@ -240,6 +242,12 @@ def train(args, config_parser: YAMLParser, device="cuda"):
         rank's partial window, and the epoch ends when every rank's lanes
         have finished it.
         """
+        # the packed wire on one device (the mesh paths stack the plain
+        # window, as train_flow.py does); exact, so the losses are the
+        # plain wire's
+        packed = mesh is None and bool(
+            (config.get("runtime") or {}).get("packed_wire", True))
+        net_compact = voxel is None
         window_batches = []
         windows_in_epoch = 0
         while True:
@@ -267,7 +275,13 @@ def train(args, config_parser: YAMLParser, device="cuda"):
             window_batches.append(batch)
             if len(window_batches) < passes:
                 continue
-            window = stack_window(window_batches)
+            # the count input derives on the device while no lane is
+            # rectified (re-checked every window: a rectified file opening
+            # mid-stream sets data.rectify, and later windows ship the
+            # host-remapped input)
+            window = stack_window(
+                window_batches, packed=packed, net_compact=net_compact,
+                derive_net=packed and net_compact and not data.rectify)
             if mesh is not None:
                 window = shard_window_2d(window, mesh, local_lanes=True)
             window_batches = []
@@ -327,7 +341,7 @@ def train(args, config_parser: YAMLParser, device="cuda"):
                 meter.tick()
 
                 if config["vis"].get("verbose") and is_main:
-                    ev = window["event_list"]
+                    ev = window.get("event_txy", window.get("event_list"))
                     ev_per_step = float(
                         ev.shape[0] * ev.shape[1] * ev.shape[2])
                     print(
