@@ -159,7 +159,29 @@ one NVIDIA card.
    ms/pass in turns. (d) ``train_flow_torch.train`` with
    ``runtime.packed_wire`` on and off: the first two step losses within
    ``WIRE_STEP_RTOL``, bytes uploaded a step.
-12. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+12. JAX run phase: a run as the JAX package's trainer leaves it, at full
+   width. (a) ``checkpoint.msgpack`` written by a msgpack writer kept here
+   (:func:`flax_to_bytes`, the subset ``flax.serialization.to_bytes``
+   writes; a CPU test holds its bytes to flax's): the seeded model after 3
+   port steps through ``models.state_dict_to_flax_params``, the optax
+   state of Adam after the clip with those steps' moments and count 3,
+   ``step`` 3 and ``epoch`` 1, the training CLI's config as run params and
+   a two-epoch loss history. (b) ``train_flow_torch.train --prev_runid``
+   that run at the training CLI's values for two epochs: the parameters
+   and both Adam moments as loaded bitwise what was written, Adam's step 3
+   on every parameter, the history replayed and epochs 1 and 2 trained,
+   finite losses, 124 / 80 / 116 launches a step. (c)
+   ``eval_flow_torch.test`` on the run at ``configs/eval_dsec.yml``'s
+   values over a rectified and an unrectified sequence: the model holds
+   the written weights, the metrics, the PNG tree, the eval phase's
+   launches a window and two row gathers a rectified one. (d)
+   ``examples/streaming_inference_torch.py``'s ``stream()`` from the run at
+   480x640, 32,768 events a slice, 100 timed passes on each wire (p50 and
+   p99 ms/pass printed); the u16 map bitwise the lattice decode of its
+   pass's float32 map. (e) 3 streaming passes under
+   ``utils.profile_trace``: the trace holds the ``stream_pass`` ranges and
+   the card's kernel rows.
+13. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -174,6 +196,7 @@ import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3850,6 +3873,443 @@ def options_phase(seed, work, train_data, gpu):
     return total
 
 
+# ------------------------------------------------------- JAX run phase (12)
+
+JAX_RUN_STEPS = 3  # port steps whose Adam state the JAX checkpoint holds
+JAX_RUN_EPOCH = 1  # the checkpoint's epoch: the warm start trains 1 and 2
+JAX_RUN_EPOCHS = 3  # n_epochs of the warm start
+JAX_RUN_HISTORY = [0.3125, 0.25]  # the run's logged losses, epochs 0 and 1
+JAX_EVAL_WINDOWS = 2  # GT windows per sequence of (c)
+STREAM_EVENTS = 32768  # events a slice, the example's default
+STREAM_PASSES = 100  # timed passes per wire, after one warm-up pass
+PROFILE_PASSES = 3
+PROFILE_TRIES = 3  # traces that may come back without the card's rows
+LATTICE = 1.0 / 128  # the u16 wire's step, px
+MSGPACK_MAX_LEAF = 2**30  # flax chunks a larger array (MAX_CHUNK_SIZE)
+
+
+def _msgpack_len(n, codes, out):
+    """The msgpack length header of the 8-, 16- or 32-bit form in
+    ``codes`` (``None``: the type has no 8-bit form)."""
+    for code, fmt, cap in zip(codes, "BHI", (0xff, 0xffff, 0xffffffff)):
+        if code is not None and n <= cap:
+            out.append(struct.pack(">B" + fmt, code, n))
+            return
+    raise ValueError(f"msgpack: length {n} over 32 bits")
+
+
+def _msgpack_int(n):
+    if 0 <= n < 0x80 or -32 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    for code, fmt, lo, hi in ((0xcc, "B", 0, 0xff), (0xd0, "b", -0x80, -1),
+                              (0xcd, "H", 0, 0xffff),
+                              (0xd1, "h", -0x8000, -1),
+                              (0xce, "I", 0, 0xffffffff),
+                              (0xd2, "i", -0x80000000, -1),
+                              (0xcf, "Q", 0, 2**64 - 1),
+                              (0xd3, "q", -2**63, -1)):
+        if lo <= n <= hi:
+            return struct.pack(">B" + fmt, code, n)
+    raise ValueError(f"msgpack: integer {n} over 64 bits")
+
+
+def _msgpack_ext(code, arr, out):
+    """flax's ext ``code`` (1 ndarray, 3 numpy scalar): msgpack ``(shape,
+    dtype name, C-order bytes)`` (``flax/serialization.py:
+    _ndarray_to_bytes``)."""
+    if arr.nbytes > MSGPACK_MAX_LEAF:
+        raise ValueError(f"an array of {arr.nbytes} bytes: flax would chunk "
+                         "it, and this writer does not")
+    payload = []
+    _msgpack_pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")],
+                  payload)
+    data = b"".join(payload)
+    fix = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if len(data) in fix:
+        out.append(bytes([fix[len(data)]]))
+    else:
+        _msgpack_len(len(data), (0xc7, 0xc8, 0xc9), out)
+    out += [bytes([code]), data]
+
+
+def _msgpack_pack(obj, out):
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        _msgpack_ext(1, obj, out)
+    elif isinstance(obj, np.generic):
+        _msgpack_ext(3, np.asarray(obj), out)
+    elif isinstance(obj, int):
+        out.append(_msgpack_int(obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xcb, obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        if len(data) < 32:
+            out.append(bytes([0xa0 | len(data)]))
+        else:
+            _msgpack_len(len(data), (0xd9, 0xda, 0xdb), out)
+        out.append(data)
+    elif isinstance(obj, bytes):
+        _msgpack_len(len(obj), (0xc4, 0xc5, 0xc6), out)
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        if len(obj) < 16:
+            out.append(bytes([0x90 | len(obj)]))
+        else:
+            _msgpack_len(len(obj), (None, 0xdc, 0xdd), out)
+        for v in obj:
+            _msgpack_pack(v, out)
+    elif isinstance(obj, dict):
+        if len(obj) < 16:
+            out.append(bytes([0x80 | len(obj)]))
+        else:
+            _msgpack_len(len(obj), (None, 0xde, 0xdf), out)
+        for k, v in obj.items():
+            _msgpack_pack(k, out)
+            _msgpack_pack(v, out)
+    else:
+        raise TypeError(f"msgpack: {type(obj).__name__} is not in the "
+                        "subset flax writes")
+
+
+def flax_to_bytes(tree) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for ``tree``, a
+    state dict of maps with string keys, numpy arrays and scalars, Python
+    scalars and ``None``. Test scaffolding: the card has no JAX, so the
+    smoke writes the JAX package's checkpoint itself (a CPU test holds
+    these bytes to flax's)."""
+    out = []
+    _msgpack_pack(tree, out)
+    return b"".join(out)
+
+
+def jax_checkpoint_tree(model, optimizer, step, epoch):
+    """What ``taming_event_flow_tpu/tracking/checkpoint.py:save_checkpoint``
+    serialises for this model and its Adam state: ``params``, the optax
+    state of ``chain(clip_by_global_norm, adam)`` under flax's state dict
+    (the clip's ``EmptyState`` as ``{}``, Adam's ``count`` a 0-d int32
+    array), ``step`` and ``epoch`` as int64 scalars."""
+    from taming_event_flow_tpu_torch.models import state_dict_to_flax_params
+
+    named = list(model.named_parameters())
+    states = [optimizer.state[p] for _, p in named]
+    counts = {int(s["step"]) for s in states}
+    check(len(counts) == 1, f"Adam step counts {counts}")
+
+    def moments(key):
+        return state_dict_to_flax_params({n: s[key]
+                                          for (n, _), s in zip(named, states)})
+
+    adam = {"count": np.asarray(counts.pop(), np.int32),
+            "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}
+    return {"params": state_dict_to_flax_params(model.state_dict()),
+            "opt_state": {"0": {}, "1": {"0": adam, "1": {}}},
+            "step": np.int64(step), "epoch": np.int64(epoch)}
+
+
+def write_jax_run(seed, work, data_dir):
+    """(a) A run as the JAX trainer leaves it: the training CLI's config as
+    run params, a short loss history, and ``checkpoint.msgpack`` of the
+    full-width model after ``JAX_RUN_STEPS`` port steps (seeded weights,
+    Adam after the clip) at B = 1. Returns the run id and what was written
+    (parameters and Adam state on the host)."""
+    import torch
+
+    from taming_event_flow_tpu_torch import tracking
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import LossConfig
+    from taming_event_flow_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng([seed, 12])
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=seed)
+    opt = build_optimizer(TRAIN_OPT, model.parameters(),
+                          clip_grad=TRAIN_CLIP, device=DEVICE)
+    step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS), "Iterative",
+                           flow_scaling=FLOW_SCALING, res=TRAIN_RES)
+    state = init_train_state(model, 1, *TRAIN_RES, device=DEVICE)
+    losses = []
+    for _ in range(JAX_RUN_STEPS):
+        state, loss = step(state, train_window(rng, 1, device=DEVICE))
+        losses.append(float(loss))
+    check(all(math.isfinite(v) for v in losses),
+          f"jax_run (a): losses {losses}")
+    tree = jax_checkpoint_tree(model, opt, state.step, JAX_RUN_EPOCH)
+    adam = tree["opt_state"]["1"]["0"]
+    check(int(adam["count"]) == JAX_RUN_STEPS == state.step,
+          f"jax_run (a): Adam count {adam['count']}, steps {state.step}")
+    blob = flax_to_bytes(tree)
+
+    config = train_cli_config(data_dir, seed).config
+    tracking.set_tracking_uri(work)
+    tracking.set_experiment(config["experiment"])
+    runid = tracking.start_run().info.run_id
+    tracking.log_params({k: str(v) for k, v in config.items()})
+    tracking.log_params({"prev_runid": ""})
+    for epoch, v in enumerate(JAX_RUN_HISTORY):
+        tracking.log_metric("loss", v, step=epoch)
+    path = os.path.join(tracking.default_store().artifact_dir(runid, "model"),
+                        "checkpoint.msgpack")
+    with open(path, "wb") as f:
+        f.write(blob)
+    tracking.end_run()
+    named = list(model.named_parameters())
+    written = {"params": {n: p.detach().cpu().clone() for n, p in named}}
+    for key in ("exp_avg", "exp_avg_sq"):
+        written[key] = {n: opt.state[p][key].cpu().clone() for n, p in named}
+    n_params = sum(v.numel() for v in written["params"].values())
+    check(all(bool(v.abs().sum() > 0) for v in written["exp_avg_sq"].values()),
+          "jax_run (a): an Adam second moment is all zero")
+    print(f"jax_run (a): run {runid}, checkpoint.msgpack {len(blob)} bytes "
+          f"({n_params} parameters with mu and nu, count {JAX_RUN_STEPS}, "
+          f"epoch {JAX_RUN_EPOCH}); step losses {losses}")
+    del model, opt, named
+    torch.cuda.empty_cache()
+    return runid, written
+
+
+def jax_warm_start(seed, work, train_data, runid, written):
+    """(b) ``train_flow_torch.train --prev_runid <the JAX run>`` on the
+    card at the training CLI's values for two epochs: the parameters and
+    both Adam moments restored bit for bit, Adam's step ``JAX_RUN_STEPS``
+    on every parameter, the start epoch and the replayed history, finite
+    losses, the launches exact per step. Returns the launches."""
+    from taming_event_flow_tpu_torch.models import optax_state_to_torch
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.tracking import (
+        default_store,
+        load_checkpoint,
+    )
+    from taming_event_flow_tpu_torch.utils import SectionTimer
+
+    data_dir, loader_cls = train_data
+    timers, loaded = [], {}
+
+    class Timer(SectionTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    def recording(tree, model, optimizer):
+        optax_state_to_torch(tree, model, optimizer)
+        named = list(model.named_parameters())
+        loaded["params"] = {n: p.detach().cpu().clone() for n, p in named}
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            loaded[key] = {n: optimizer.state[p][key].cpu().clone()
+                           for n, p in named}
+
+    parser = train_cli_config(data_dir, seed)
+    parser.config["loader"]["n_epochs"] = JAX_RUN_EPOCHS
+    reset_launches()
+    run2, wall, text = run_train_cli(
+        parser, work, {"H5Loader": loader_cls, "SectionTimer": Timer,
+                       "optax_state_to_torch": recording}, runid)
+    launches = dict(LAUNCHES)
+
+    check(f"Model restored from {runid}" in text,
+          "jax_run (b): the warm start did not restore the JAX run")
+    check(sorted(loaded) == ["exp_avg", "exp_avg_sq", "params", "step"],
+          "jax_run (b): the optax state was not loaded")
+    for key in ("params", "exp_avg", "exp_avg_sq"):
+        check(sorted(loaded[key]) == sorted(written[key]),
+              f"jax_run (b) {key}: names differ")
+        for n, v in written[key].items():
+            check(torch_equal(loaded[key][n], v),
+                  f"jax_run (b) {key} {n}: not bitwise what was written")
+    steps_loaded = {float(v) for v in loaded["step"].values()}
+    check(steps_loaded == {float(JAX_RUN_STEPS)},
+          f"jax_run (b): Adam steps {steps_loaded}")
+
+    history = default_store().read_metric(run2, "loss")
+    values = [v for _, v, _ in history]
+    new_epochs = [s for _, _, s in history][len(JAX_RUN_HISTORY):]
+    check(values[:len(JAX_RUN_HISTORY)] == JAX_RUN_HISTORY,
+          f"jax_run (b): history {values}")
+    check(new_epochs == list(range(JAX_RUN_EPOCH, JAX_RUN_EPOCHS)),
+          f"jax_run (b): epochs trained {new_epochs}")
+    new = values[len(JAX_RUN_HISTORY):]
+    check(all(math.isfinite(v) for v in new), f"jax_run (b) losses {new}")
+    steps = timers[0].counts.get("step_dispatch", 0)
+    check(steps >= 3 * len(new_epochs), f"jax_run (b): {steps} steps")
+    expect = {name: n * steps for name, n in TRAIN_LAUNCHES.items()}
+    check(launches == expect,
+          f"jax_run (b) launches {launches}, expected {expect}")
+    ckpt, _ = load_checkpoint(run2)
+    adam = {int(s["step"]) for s in ckpt["optimizer"]["state"].values()}
+    check(adam == {ckpt["step"]}
+          and JAX_RUN_STEPS < ckpt["step"] <= JAX_RUN_STEPS + steps,
+          f"jax_run (b): checkpoint step {ckpt['step']}, Adam steps {adam}")
+    print(f"jax_run (b): warm run {run2} from {runid}: {steps} steps over "
+          f"epochs {new_epochs}, losses {values}; parameters, exp_avg and "
+          f"exp_avg_sq bitwise the written ones, Adam step "
+          f"{JAX_RUN_STEPS}; launches {launches}; {wall:.2f} s")
+    return launches
+
+
+def torch_equal(a, b):
+    import torch
+
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def jax_eval(seed, work, runid, written, eval_launches, gpu):
+    """(c) ``eval_flow_torch.test`` on the JAX run at
+    ``configs/eval_dsec.yml``'s values over a rectified and an unrectified
+    sequence: the model holds the written parameters, ``metrics_0.yml`` a
+    finite entry per sequence and metric, the ``flow_bw`` tree a PNG per
+    window, and every window the eval phase's launches (two row gathers on
+    a rectified one, the u32 wire's lookup and the remap). Returns the
+    launches."""
+    frames = JAX_EVAL_WINDOWS + 2
+    specs = {"seq_rect": dsec_sequence(frames, seed * 10 + 40, rectify=True),
+             "seq_plain": dsec_sequence(frames, seed * 10 + 41)}
+    data_dir, loader_cls = eval_cli_data(work, "jax_run", specs)
+    results, wall, pipe, res_dir, launches = eval_cli_run(
+        "jax_run", EVAL_DSEC_CLI, data_dir, loader_cls, runid, work)
+    held = {n: p.detach().cpu() for n, p in pipe.model.named_parameters()}
+    check(all(torch_equal(held[n], v)
+              for n, v in written["params"].items()),
+          "jax_run (c): the eval model does not hold the JAX run's weights")
+    check_metrics_file(res_dir, results, list(specs),
+                       EVAL_DSEC_CLI["metrics"]["name"])
+    tree = os.path.join(res_dir, "results", "eval_0")
+    for seq in specs:
+        windows = [w for s, w in pipe.windows if s == seq]
+        check(len(windows) == JAX_EVAL_WINDOWS,
+              f"jax_run (c) {seq}: {len(windows)} windows")
+        check_dsec_tree(tree, seq, len(windows))
+        rows = 2 if seq == "seq_rect" else 0
+        for i, w in enumerate(windows):
+            expect = {"splat_bilinear": eval_launches["splat_bilinear"],
+                      "gather_bilinear": eval_launches["gather_bilinear"],
+                      "gather_fused": 0, "row_gather": rows}
+            check(w == expect, f"jax_run (c) {seq} window {i}: launches {w},"
+                  f" expected {expect}")
+    print(f"jax_run (c): metrics {results}; launches {launches}; "
+          f"{wall / len(pipe.windows) * 1e3:.3f} ms per GT window of CLI "
+          f"wall on {gpu}")
+    return launches
+
+
+def streaming_example():
+    """``examples/streaming_inference_torch.py``, imported by its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "streaming_inference_torch.py")
+    spec = importlib.util.spec_from_file_location("streaming_inference_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def stream_args(example, runid, work, wire, passes):
+    return example.parse_args([
+        "--runid", runid, "--path_mlflow", work, "--height", str(RES[0]),
+        "--width", str(RES[1]), "--n_events", str(STREAM_EVENTS),
+        "--passes", str(passes), "--wire", wire, "--device", DEVICE])
+
+
+def jax_stream(work, runid, gpu):
+    """(d) The streaming example from the JAX run at 480x640,
+    ``STREAM_EVENTS`` a slice, ``STREAM_PASSES`` timed passes on each wire
+    (p50 and p99 ms/pass printed); the u16 wire's map bitwise the lattice
+    decode of the same pass's float32 map, and within one lattice step of
+    the f32 wire's map of the same slices. Returns ``{wire: (p50, p99)}``."""
+    from taming_event_flow_tpu_torch.utils import flow_to_u16, u16_to_flow
+
+    example = streaming_example()
+    maps, times = {}, {}
+    for wire in ("f32", "u16"):
+        flow, lat = example.stream(stream_args(example, runid, work, wire,
+                                               STREAM_PASSES))
+        check(flow.shape == (1, *RES, 2) and np.isfinite(flow).all(),
+              f"jax_run (d) {wire}: flow {flow.shape}")
+        maps[wire] = flow
+        times[wire] = (float(np.percentile(lat, 50)),
+                       float(np.percentile(lat, 99)))
+        print(f"jax_run (d) stream {wire}: p50 {times[wire][0]:.3f} ms, p99 "
+              f"{times[wire][1]:.3f} ms, mean {lat.mean():.3f} ms per pass "
+              f"over {len(lat)} passes ({RES[0]}x{RES[1]}, {STREAM_EVENTS} "
+              f"events a slice; upload, encode, forward, read-back) on {gpu}")
+
+    # the same pass read on both wires: the u16 map is the lattice decode
+    seen = {}
+    real = example.read_map
+
+    def spy(flow, wire):
+        out = real(flow, wire)
+        seen["f32"], seen["out"] = flow.clone(), out
+        return out
+
+    example.read_map = spy
+    example.stream(stream_args(example, runid, work, "u16", 1))
+    ref = u16_to_flow(flow_to_u16(seen["f32"]).cpu().numpy())
+    check(np.array_equal(seen["out"], ref),
+          "jax_run (d): the u16 wire's map is not the lattice decode of its "
+          "pass's float32 map")
+    gap = float(np.abs(maps["u16"] - maps["f32"]).max())
+    print(f"jax_run (d): u16 map bitwise the decode of its pass's f32 map; "
+          f"u16 vs f32 wire over the same slices: max {gap:.3e} px "
+          f"(lattice {LATTICE:.3e}), max |flow| "
+          f"{float(np.abs(maps['f32']).max()):.3f} px")
+    check(gap <= LATTICE * (1 + 1e-3), f"jax_run (d): u16 vs f32 {gap}")
+    return times
+
+
+def jax_profile(work, runid):
+    """(e) ``PROFILE_PASSES`` streaming passes under
+    ``utils.profile_trace``: the trace file holds the example's
+    ``stream_pass`` annotation and the card's kernel rows. Returns the
+    trace's kernel rows."""
+    from taming_event_flow_tpu_torch.utils import profile_trace
+
+    example = streaming_example()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        logdir = os.path.join(work, f"stream_profile_{attempt}")
+        with profile_trace(logdir):
+            example.stream(stream_args(example, runid, work, "f32",
+                                       PROFILE_PASSES))
+        files = [f for f in os.listdir(logdir) if f.endswith(".json")]
+        check(len(files) == 1, f"jax_run (e): trace files {files}")
+        with open(os.path.join(logdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        passes = sum(e.get("name") == "stream_pass" for e in events)
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"jax_run (e) trace {attempt}: {files[0]}, {len(events)} "
+              f"events, {passes} stream_pass ranges, {kernels} kernel rows")
+        check(passes >= PROFILE_PASSES + 1,
+              f"jax_run (e): {passes} stream_pass ranges")
+        if kernels:
+            return kernels
+    check(False, f"jax_run (e): {PROFILE_TRIES} traces without a kernel row")
+
+
+def jax_run_phase(seed, work, train_data, eval_launches, gpu):
+    """Phase 12: a run the JAX package made, at full width, on the card:
+    (a) its ``checkpoint.msgpack`` written, (b) warm-started by the
+    training CLI, (c) evaluated by the eval CLI, (d) streamed by the
+    example on both wires, (e) a few streaming passes profiled. Returns
+    the launches of (b) and (c) and the streaming times."""
+    t_phase = time.perf_counter()
+    runid, written = write_jax_run(seed, work, train_data[0])
+    runs = [jax_warm_start(seed, work, train_data, runid, written),
+            jax_eval(seed, work, runid, written, eval_launches, gpu)]
+    times = jax_stream(work, runid, gpu)
+    jax_profile(work, runid)
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"phase 12 jax_run: {time.perf_counter() - t_phase:.1f} s on "
+          f"{gpu}; launches {total}")
+    return total, times
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3903,13 +4363,17 @@ def main(argv=None):
             args.seed, work, train_data, per_window, gpu)
         par_launches, par_times = parallel_phase(args.seed, work, runid)
         option_launches = options_phase(args.seed, work, train_data, gpu)
+        jax_launches, stream_times = jax_run_phase(args.seed, work,
+                                                   train_data, per_window,
+                                                   gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
              "train": train_launches, "train_cli": cli_launches,
              "eval_cli": eval_cli_launches, "registry": registry_launches,
-             "parallel": par_launches, "options": option_launches}
+             "parallel": par_launches, "options": option_launches,
+             "jax_run": jax_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -3946,6 +4410,9 @@ def main(argv=None):
     print("parallel_ms (two gloo ranks sharing one card, not a scaling "
           "figure): " + ", ".join(f"{k} {v:.4f}"
                                   for k, v in par_times.items()))
+    print("stream_ms_per_pass (480x640, the JAX run): " + ", ".join(
+        f"{w} p50 {p50:.3f} p99 {p99:.3f}"
+        for w, (p50, p99) in stream_times.items()))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

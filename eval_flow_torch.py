@@ -15,7 +15,8 @@ quantity). It writes what ``eval_flow.py`` writes:
 per-sequence averages, and the image tree
 ``results/eval_<id>/<sequence>/<panel>/%09d.png`` with ``timestamps.txt``,
 which ``prepare_dsec_submission.py`` turns into a DSEC-Flow submission.
-The weights come from the run's ``artifacts/model/checkpoint.pt``. One
+The weights come from the run's ``artifacts/model/checkpoint.pt``, or from
+the ``checkpoint.msgpack`` of a run the JAX package trained. One
 process runs on one device: the card by default, the CPU when asked
 (``--device cpu``).
 
@@ -33,7 +34,6 @@ The ``runtime`` wires are the JAX pipeline's (``pipeline/eval.py``):
 """
 
 import argparse
-import os
 
 import torch
 import torch.distributed as dist
@@ -61,29 +61,17 @@ from taming_event_flow_tpu_torch.utils import (
     resolve_device,
 )
 
-JAX_CKPT_NAME = "checkpoint.msgpack"
-
 
 def load_weights(model, runid: str, device) -> None:
-    """Load the run's ``checkpoint.pt`` into ``model``. A run without any
-    checkpoint keeps the seeded initial weights, with a warning, as
-    ``eval_flow.py`` does.
-
-    :raises RuntimeError: for a run that holds only the JAX package's
-        ``checkpoint.msgpack``, which the port does not read.
-    """
+    """Load the run's checkpoint into ``model``: its ``checkpoint.pt``, or
+    the JAX package's ``checkpoint.msgpack`` for a run that package made.
+    A run without any checkpoint keeps the seeded initial weights, with a
+    warning, as ``eval_flow.py`` does."""
     ckpt, _ = load_checkpoint(runid, map_location=device)
-    if ckpt is not None:
-        model.load_state_dict(ckpt["model"])
+    if ckpt is None:
+        print("WARNING: no checkpoint found for run; evaluating random init")
         return
-    jax_ckpt = os.path.join(tracking.get_run(runid).info.artifact_uri,
-                            "model", JAX_CKPT_NAME)
-    if os.path.isfile(jax_ckpt):
-        raise RuntimeError(
-            f"run {runid} holds only the JAX package's {JAX_CKPT_NAME}; the "
-            "port reads checkpoint.pt (convert the parameters with "
-            "models.flax_params_to_state_dict and tracking.save_checkpoint)")
-    print("WARNING: no checkpoint found for run; evaluating random init")
+    model.load_state_dict(ckpt["model"])
 
 
 def test(args, config_parser: YAMLParser, device="cuda"):

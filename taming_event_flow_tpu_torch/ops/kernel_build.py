@@ -3,7 +3,8 @@
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with :mod:`ctypes` (no PyTorch headers,
 so it builds in seconds: ``chip_smoke.py`` prints the build time, and
-PERF.md records it). The build happens at first CUDA use, into
+PERF.md records it). The build happens at first CUDA use, or ahead of a run
+with ``python -m taming_event_flow_tpu_torch.ops.kernel_build``, into
 ``build/cuda/<source hash>/`` beside the package (a directory ``.gitignore``
 lists), so a fresh checkout builds everything it runs from its own sources
 and a changed source never loads a stale library.
@@ -138,3 +139,9 @@ def load() -> KernelLibrary:
             seconds, log = compile_library(SOURCE, so)
         _loaded.append(KernelLibrary(open_library(so), so, seconds, log))
         return _loaded[0]
+
+
+if __name__ == "__main__":
+    built = load()
+    print(f"{built.path}: built in {built.build_seconds:.2f} s "
+          f"(0.00 when the library was already built)")

@@ -4,8 +4,10 @@
 A checkpoint is one ``torch.save`` file, ``artifacts/model/checkpoint.pt``,
 holding the model's ``state_dict``, the optimizer's ``state_dict`` (the
 Adam moments and step count, which the reference loses on resume), ``step``
-and ``epoch``. The JAX package writes flax msgpack
-(``checkpoint.msgpack``) instead; the port does not read it.
+and ``epoch``. The JAX package writes flax msgpack (``checkpoint.msgpack``:
+its ``params``, optax ``opt_state``, ``step`` and ``epoch``), and
+:func:`load_checkpoint` reads that too (:mod:`.flax_msgpack`), so a run of
+either package warm-starts and evaluates in the port.
 
 The port's parameter names are the reference's, so a reference
 ``model.pth`` loads as it is (:func:`load_reference_torch_checkpoint`).
@@ -18,9 +20,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..models.port import flax_params_to_state_dict
+from . import flax_msgpack
 from .store import default_store
 
 CKPT_NAME = "checkpoint.pt"
+JAX_CKPT_NAME = "checkpoint.msgpack"
 
 
 def save_checkpoint(run_id: str, model_state: Dict[str, torch.Tensor],
@@ -39,7 +44,12 @@ def save_checkpoint(run_id: str, model_state: Dict[str, torch.Tensor],
 
 def load_checkpoint(run_id: str, store=None, map_location="cpu"
                     ) -> Tuple[Optional[Dict[str, Any]], int]:
-    """Read a run's checkpoint onto ``map_location``.
+    """Read a run's checkpoint onto ``map_location``: its ``checkpoint.pt``,
+    else the JAX package's ``checkpoint.msgpack`` in the same shape, with
+    ``model`` the params through ``models.flax_params_to_state_dict``,
+    ``optimizer`` ``None`` and ``optax_state`` the raw optax state tree
+    (``None`` where the run saved none; ``models.optax_state_to_torch``
+    loads it into an optimizer).
 
     :return: ``(checkpoint | None, starting_epoch)``: ``None`` and 0 for an
         unknown run or a run without a checkpoint, as the reference's
@@ -51,11 +61,21 @@ def load_checkpoint(run_id: str, store=None, map_location="cpu"
         run = store.get_run(run_id)
     except (KeyError, TypeError):
         return None, 0
-    path = os.path.join(run.info.artifact_uri, "model", CKPT_NAME)
-    if not os.path.isfile(path):
+    model_dir = os.path.join(run.info.artifact_uri, "model")
+    path = os.path.join(model_dir, CKPT_NAME)
+    jax_path = os.path.join(model_dir, JAX_CKPT_NAME)
+    if os.path.isfile(path):
+        ckpt = torch.load(path, map_location=map_location, weights_only=True)
+    elif os.path.isfile(jax_path):
+        with open(jax_path, "rb") as f:
+            tree = flax_msgpack.loads(f.read())
+        model = flax_params_to_state_dict(tree["params"])
+        ckpt = {"model": {k: v.to(map_location) for k, v in model.items()},
+                "optimizer": None, "optax_state": tree["opt_state"],
+                "step": int(tree["step"]), "epoch": int(tree["epoch"])}
+    else:
         print(f"No model found at {run_id}")
         return None, 0
-    ckpt = torch.load(path, map_location=map_location, weights_only=True)
     print(f"Model restored from {run_id}")
     return ckpt, int(ckpt.get("epoch", 0))
 

@@ -1,6 +1,8 @@
-"""Observability of host loops (counterpart of
+"""Observability (counterpart of
 ``taming_event_flow_tpu/utils/diagnostics.py``): the run's git-diff
-snapshot and the wall-clock attribution of a loop's sections."""
+snapshot, device profiling with ``torch.profiler`` (a trace TensorBoard's
+profiler plugin or Perfetto reads) and the wall-clock attribution of a
+loop's sections."""
 
 from __future__ import annotations
 
@@ -11,9 +13,36 @@ import tempfile
 import time
 from typing import Optional
 
+import torch
+
 from ..tracking.store import default_store
 
 _SENTINEL = object()
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str]):
+    """Profile the region with ``torch.profiler``: CPU activity, and the
+    card's kernels where one is present. On exit the trace is written
+    under ``logdir`` by ``torch.profiler.tensorboard_trace_handler``
+    (``<worker>.<time>.pt.trace.json``). A falsy ``logdir`` does
+    nothing."""
+    if not logdir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield
+
+
+def annotate(name: str):
+    """A named range inside a :func:`profile_trace` region
+    (``torch.profiler.record_function``)."""
+    return torch.profiler.record_function(name)
 
 
 def save_diff(fname: str = "git_diff.txt", run_id: Optional[str] = None):

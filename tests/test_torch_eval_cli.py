@@ -284,15 +284,27 @@ def _copy_run(root, runid, dst, artifacts=()):
     return run.info.run_id
 
 
-def test_eval_refuses_a_jax_only_checkpoint(trained_run, tmp_path):
-    """A run that holds only ``checkpoint.msgpack`` raises: the port never
-    evaluates random weights in its place."""
+def test_eval_reads_a_jax_only_checkpoint(trained_run, evaluated, tmp_path,
+                                          capsys):
+    """A run that holds only the JAX package's ``checkpoint.msgpack``
+    evaluates with its weights: the port's CLI on it matches ``eval_flow.py``
+    on the run (the pipeline-parity tolerance), and the port's own results
+    from the ``checkpoint.pt`` of the same weights exactly. Before the port
+    read the JAX checkpoint, this run raised."""
     root, ds, runid = trained_run
+    _, _, jres, pres = evaluated("gtflow_store")
     copy = _copy_run(root, runid, tmp_path, ["checkpoint.msgpack"])
-    path = write_cfg(tmp_path / "eval.yml", eval_cfg(ds, store=False))
-    with pytest.raises(RuntimeError, match="checkpoint.pt"):
-        run_cli(eval_flow_torch, YAMLParser, path, tmp_path, copy,
-                tmp_path / "results", device="cpu")
+    path = write_cfg(tmp_path / "eval.yml", eval_cfg(ds))
+    capsys.readouterr()
+    got = run_cli(eval_flow_torch, YAMLParser, path, tmp_path, copy,
+                  tmp_path / "results", device="cpu")
+    assert f"Model restored from {copy}" in capsys.readouterr().out
+    assert got == pres
+    for metric, seqs in jres.items():
+        for seq, v in seqs.items():
+            np.testing.assert_allclose(float(got[metric][seq]), float(v),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{metric} {seq}")
 
 
 def test_eval_without_checkpoint_warns(trained_run, tmp_path, capsys):

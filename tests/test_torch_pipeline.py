@@ -299,7 +299,8 @@ def test_consume_mets_and_consumer():
 # ----------------------------------------------------------------- hygiene
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "taming_event_flow_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+              "taming_event_flow_tpu")
 # optional host packages: imported only inside the functions that use them
 _FUNCTION_ONLY = ("h5py", "yaml", "cv2")
 
@@ -313,6 +314,8 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "train_flow_torch.py")
     yield os.path.join(REPO, "eval_flow_torch.py")
+    yield os.path.join(REPO, "examples", "streaming_inference_torch.py")
+    yield os.path.join(REPO, "scripts", "import_torch_checkpoint_torch.py")
 
 
 def _imports(tree):
@@ -334,13 +337,15 @@ def _imports(tree):
 
 def test_port_imports_nothing_of_jax():
     """No port file (the package, ``chip_smoke.py``, ``train_flow_torch.py``,
-    ``eval_flow_torch.py``) imports JAX or the JAX package anywhere, nor
-    h5py, PyYAML or cv2 at import time."""
+    ``eval_flow_torch.py``, the streaming example and the import script)
+    imports JAX, the JAX package or ``msgpack`` anywhere, nor h5py, PyYAML
+    or cv2 at import time."""
     files = list(_port_files())
     assert len(files) > 25
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
     assert {os.path.join(pkg, "objectives", "linear.py"),
             os.path.join(pkg, "models", "fire.py"),
+            os.path.join(pkg, "tracking", "flax_msgpack.py"),
             os.path.join(pkg, "parallel", "event.py"),
             os.path.join(pkg, "parallel", "collectives.py")} <= set(files)
     late = set()
@@ -358,7 +363,9 @@ def test_port_imports_nothing_of_jax():
 
 def _port_modules():
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
-    out = ["train_flow_torch", "eval_flow_torch", "chip_smoke"]
+    out = ["train_flow_torch", "eval_flow_torch", "chip_smoke",
+           "examples.streaming_inference_torch",
+           "scripts.import_torch_checkpoint_torch"]
     for root, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
@@ -372,8 +379,9 @@ def _port_modules():
 
 def test_port_imports_without_optional_packages():
     """In a process where h5py, PyYAML and cv2 cannot be imported, every
-    port module and both CLIs import, and the parser builds a
-    config from its defaults; nothing of JAX is loaded."""
+    port module, both CLIs, the streaming example and the import script
+    import, and the parser builds a config from its defaults; nothing of
+    JAX is loaded."""
     modules = _port_modules()
     assert len(modules) > 25
     assert {"taming_event_flow_tpu_torch.objectives.linear",
@@ -387,7 +395,8 @@ def test_port_imports_without_optional_packages():
         "    importlib.import_module(m)",
         "from taming_event_flow_tpu_torch.configs import YAMLParser",
         "assert YAMLParser().config['loader']['batch_size'] == 1",
-        "assert not any(k.split('.')[0] in ('jax', 'taming_event_flow_tpu')",
+        "assert not any(k.split('.')[0] in ('jax', 'taming_event_flow_tpu',",
+        "                                   'msgpack')",
         "               for k in sys.modules)",
         "print('imported', len(sys.modules))",
     ])

@@ -255,3 +255,46 @@ def test_cli_loss_history_matches_jax(tmp_path):
     got = losses(tmp_path / "port", runid)
     assert len(ref) == 3 and len(set(ref)) == 3
     np.testing.assert_allclose(got, ref, rtol=1e-4)
+
+
+def test_warm_start_from_a_jax_run(tmp_path, capsys):
+    """The JAX trainer makes run A; ``train_flow.train --prev_runid A`` and
+    ``train_flow_torch.train --prev_runid A`` then restore its
+    ``checkpoint.msgpack`` (weights, Adam moments and count, epoch), replay
+    the same history exactly, resume at the same epoch and log the same
+    epoch losses within rtol 1e-4 over at most six steps (the CLI gate's
+    tolerance above). Before the port read the JAX checkpoint, its warm
+    start trained from the seeded weights at epoch 0."""
+    ds = tmp_path / "data"
+    write_synthetic_h5(str(ds / "seq0.h5"), n_events=1500, res=RES,
+                       duration=1.0, seed=1)
+    root = tmp_path / "store"
+    path_a = write_cfg(tmp_path / "a.yml", train_cfg(str(ds), n_epochs=2))
+    path = write_cfg(tmp_path / "warm.yml", train_cfg(str(ds), n_epochs=3))
+
+    def jax_train(cfg_path, prev):
+        args = argparse.Namespace(config=cfg_path, path_mlflow=str(root),
+                                  path_cache="", prev_runid=prev)
+        return train_flow.train(args, JaxParser(cfg_path))
+
+    run_a = jax_train(path_a, "")
+    ckpt, epoch = load_checkpoint(run_a,
+                                  store=tracking.TrackingStore(str(root)))
+    assert ckpt["optimizer"] is None and ckpt["optax_state"] is not None
+    assert epoch in (0, 1) and ckpt["step"] == 2 * (epoch + 1)
+    capsys.readouterr()
+    runs = {"jax": jax_train(path, run_a),
+            "port": run_port(path, root, prev_runid=run_a)}
+    assert f"Model restored from {run_a}" in capsys.readouterr().out
+
+    store = JaxStore(str(root))
+    history = store.read_metric(run_a, "loss")
+    assert len(history) == 2
+    got = {k: store.read_metric(r, "loss") for k, r in runs.items()}
+    for rows in got.values():
+        assert [(v, s) for _, v, s in rows[:2]] == [
+            (v, s) for _, v, s in history]
+        assert [s for _, _, s in rows[2:]] == list(range(epoch, 3))
+    jl, pl = ([v for _, v, _ in got[k][2:]] for k in ("jax", "port"))
+    assert len(jl) * 2 <= 6 and np.isfinite(jl).all()
+    np.testing.assert_allclose(pl, jl, rtol=1e-4)

@@ -7,8 +7,11 @@
 
 It reads the same configs, takes the same flags and writes the same
 tracking layout (``mlruns/0/<runid>/``) as ``train_flow.py``, with the
-checkpoint at ``artifacts/model/checkpoint.pt``. One process runs on one
-device: the card by default, the CPU when asked (``--device cpu``).
+checkpoint at ``artifacts/model/checkpoint.pt``. ``--prev_runid`` warm-starts
+from a run of either package: a JAX run's ``checkpoint.msgpack`` gives the
+weights, the Adam moments and step count, the epoch and the loss history.
+One process runs on one device: the card by default, the CPU when asked
+(``--device cpu``).
 
 Several devices: launch one process per device with ``torchrun``::
 
@@ -41,7 +44,10 @@ import torch
 from taming_event_flow_tpu_torch import tracking
 from taming_event_flow_tpu_torch.configs import YAMLParser
 from taming_event_flow_tpu_torch.data import H5Loader, Prefetcher
-from taming_event_flow_tpu_torch.models import build_model
+from taming_event_flow_tpu_torch.models import (
+    build_model,
+    optax_state_to_torch,
+)
 from taming_event_flow_tpu_torch.objectives import LossConfig
 from taming_event_flow_tpu_torch.ops import set_tf32
 from taming_event_flow_tpu_torch.parallel import (
@@ -194,14 +200,17 @@ def train(args, config_parser: YAMLParser, device="cuda"):
     )
     state = init_train_state(model, local_batch, res[0], res[1], device=dev)
 
-    # warm start (reference ``train_flow.py:63``), Adam moments included;
-    # every rank loads the checkpoint from the shared store
+    # warm start (reference ``train_flow.py:63``), Adam moments included,
+    # from a run of either package; every rank loads the checkpoint from
+    # the shared store
     epoch = 0
     if args.prev_runid:
         ckpt, epoch = load_checkpoint(args.prev_runid)
         if ckpt is not None:
             model.load_state_dict(ckpt["model"])
-            if ckpt["optimizer"] is not None:
+            if ckpt.get("optax_state") is not None:
+                optax_state_to_torch(ckpt["optax_state"], model, optimizer)
+            elif ckpt["optimizer"] is not None:
                 optimizer.load_state_dict(ckpt["optimizer"])
             state = state._replace(step=ckpt["step"])
             # replay the prior loss history into the new run
