@@ -181,7 +181,23 @@ one NVIDIA card.
    pass's float32 map. (e) 3 streaming passes under
    ``utils.profile_trace``: the trace holds the ``stream_pass`` ranges and
    the card's kernel rows.
-13. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+13. Transposed-conv phase: ``use_upsample_conv: false`` (the JAX
+   package's stride-2 SAME transposed-conv decoders) in the full-width
+   RecEVFlowNet. (a) The training cell (B = 8, 1 + ``OPT_STEPS`` steps)
+   beside the default model: finite, changing losses, every gradient,
+   124 / 80 / 116 launches a step, ms/step of both; then card against CPU
+   at B = 1 (:func:`card_vs_cpu` without its probes). (b) The DSEC cell
+   (bf16, 3 windows): finite metrics, 2 splats and 10 gathers a window,
+   ms/pass in turns with the default model; one window in float32 card
+   against CPU. (c) ``train_flow_torch.train`` for one epoch and
+   ``eval_flow_torch.test`` over two GT windows with the flag: the run's
+   decoders are ``transposed_conv2d``, the launches exact. (d) A JAX
+   ``checkpoint.msgpack`` of the model (``ConvTranspose_0`` leaves and
+   Adam moments, :func:`flax_to_bytes`) warm-started: parameters and
+   moments bitwise. (e) The decoders' device ms in a bf16 window and a
+   training step, replayed alone, against the default's upsample and
+   conv, beside the whole window's and step's device time.
+14. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -1340,7 +1356,8 @@ def profile_run(fn, out_dir, tag, trace=True, watch=()):
     """Kernel-time breakdown of one call of ``fn`` (torch.profiler): the
     table goes to ``<out_dir>/profile_<tag>.txt``, the ten kernels with the
     most device time to stdout, and for each name in ``watch`` the
-    launches and device ms of the kernels whose name holds it."""
+    launches and device ms of the kernels whose name holds it. Returns
+    the wall and the device time, in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1378,6 +1395,7 @@ def profile_run(fn, out_dir, tag, trace=True, watch=()):
         print(f"profile {tag}: kernels named *{name}*: "
               f"{sum(a.count for a in rows)} launches, "
               f"{sum(a.self_device_time_total for a in rows) / 1e3:.5f} ms")
+    return wall * 1e3, busy * 1e3
 
 
 def profile_window(pipe, passes, out_dir):
@@ -1584,9 +1602,10 @@ def grad_gaps(model, ref_model):
     return worst, math.sqrt(diff2 / norm2)
 
 
-def card_vs_cpu(rng):
+def card_vs_cpu(rng, model_config=MODEL_CONFIG, probes=True):
     """Float32 on the card (TF32 off) against the CPU's plain versions, at
-    B=1 from the same weights on the same window.
+    B=1 from the same weights on the same window, for the full-width model
+    of ``model_config``.
 
     The loss's gradient is discontinuous in the flows (the derivative
     stencil jumps where a warped point crosses an integer coordinate), so
@@ -1598,7 +1617,9 @@ def card_vs_cpu(rng):
     model's backward), in float64 on both devices. Printed beside them:
     the whole step's gradient gap next to the CPU's own gap when its
     weights move by ``JITTER``, and the float32 model gradients against
-    float64 on either device."""
+    float64 on either device, then the float32 probes; ``probes`` off
+    leaves out the jittered runs, the float32 gradients and the probes,
+    and runs the checks alone."""
     import torch
 
     from taming_event_flow_tpu_torch.models import build_model
@@ -1620,10 +1641,10 @@ def card_vs_cpu(rng):
 
     # (a) the whole step; the CPU once more with its weights jittered
     runs = {}
+    jittered = (("jitter", "cpu", w_cpu, JITTER),) if probes else ()
     for tag, dev, w, jitter in (("card", DEVICE, w_card, 0.0),
-                                ("cpu", "cpu", w_cpu, 0.0),
-                                ("jitter", "cpu", w_cpu, JITTER)):
-        model, step, state = build_trainer(1, dev)
+                                ("cpu", "cpu", w_cpu, 0.0)) + jittered:
+        model, step, state = build_trainer(1, dev, model_config=model_config)
         gen = torch.Generator().manual_seed(1)
         with torch.no_grad():
             for p in model.parameters():
@@ -1638,7 +1659,7 @@ def card_vs_cpu(rng):
     rel = abs(a - b) / abs(b)
     print(f"f32 train loss: card {a:.8f} cpu {b:.8f} rel {rel:.2e}")
     check(rel <= TRAIN_LOSS_RTOL, f"train loss: card {a} vs cpu {b}")
-    for tag in ("card", "jitter"):
+    for tag in ("card", "jitter")[:1 + probes]:
         (worst, name), glob = grad_gaps(runs[tag][0], runs["cpu"][0])
         print(f"f32 whole step, {tag} vs cpu: flows max abs error / max "
               f"|flow| {max_ratio(runs[tag][1], runs['cpu'][1]):.2e}; "
@@ -1647,26 +1668,29 @@ def card_vs_cpu(rng):
     # (b) the loss's flow gradient on identical flows
     flows = runs["cpu"][1]
     gen = torch.Generator().manual_seed(2)
-    jittered = flows * (1 + JITTER * torch.randn(flows.shape, generator=gen))
+    cases = (("card", DEVICE, w_card, flows), ("cpu", "cpu", w_cpu, flows))
+    if probes:
+        cases += (("jitter", "cpu", w_cpu, flows * (1 + JITTER * torch.randn(
+            flows.shape, generator=gen))),)
     g_flow = {}
-    for tag, dev, w, fl in (("card", DEVICE, w_card, flows),
-                            ("cpu", "cpu", w_cpu, flows),
-                            ("jitter", "cpu", w_cpu, jittered)):
+    for tag, dev, w, fl in cases:
         f = fl.to(dev).requires_grad_()
         iterative_loss(f, w["event_list"], w["pol_mask"], w["grad_mask"],
                        cfg).backward()
         g_flow[tag] = f.grad
     ratio = max_ratio(g_flow["card"], g_flow["cpu"])
+    own = (f"; cpu with flows jittered vs cpu "
+           f"{max_ratio(g_flow['jitter'], g_flow['cpu']):.2e}"
+           if probes else "")
     print(f"f32 loss flow gradient on identical flows, card vs cpu: max abs "
-          f"error / max |g| {ratio:.2e}; cpu with flows jittered vs cpu "
-          f"{max_ratio(g_flow['jitter'], g_flow['cpu']):.2e}")
+          f"error / max |g| {ratio:.2e}{own}")
     check(ratio <= TRAIN_GRAD_TOL, f"loss flow gradient off by {ratio}")
 
     # (c) the model's backward for one flow cotangent
     models = {}
-    for dtype in (torch.float64, torch.float32):
+    for dtype in (torch.float64, torch.float32)[:1 + probes]:
         for dev, w in ((DEVICE, w_card), ("cpu", w_cpu)):
-            m = build_model(MODEL_CONFIG, num_bins=2, device=dev,
+            m = build_model(model_config, num_bins=2, device=dev,
                             seed=0).to(dtype)
             flows_of(m, w, dtype).backward(g_flow["cpu"].to(dev))
             models[dev, dtype] = m
@@ -1677,6 +1701,8 @@ def card_vs_cpu(rng):
           f"{glob:.2e}")
     check(worst <= TRAIN_GRAD_TOL,
           f"model gradients: {name} off by {worst} x its max |g|")
+    if not probes:
+        return
     for dev in (DEVICE, "cpu"):
         (w32, n32), g32 = grad_gaps(models[dev, torch.float32], ref)
         print(f"f32 model gradients on {dev} vs f64 on cpu: worst {w32:.2e} "
@@ -1694,7 +1720,7 @@ def card_vs_cpu(rng):
         for dev, dtype, w in ((DEVICE, torch.float32, w_card),
                               ("cpu", torch.float32, w_cpu),
                               ("cpu", torch.float64, w_cpu)):
-            m = build_model(MODEL_CONFIG, num_bins=2, device=dev,
+            m = build_model(model_config, num_bins=2, device=dev,
                             seed=0).to(dtype)
             first = {"net_input": w["net_input"][:passes]}
             flows_of(m, first, dtype).backward(
@@ -3519,11 +3545,11 @@ WIRE_STEP_RTOL = 1e-5  # the training CLI's first steps, packed vs plain
 
 
 def option_steps(tag, rng, model_change=None, loss_change=None,
-                 expect=TRAIN_LAUNCHES):
+                 expect=TRAIN_LAUNCHES, phase="options"):
     """The training cell (B = 8) with a model or loss option: one warm-up
     and ``OPT_STEPS`` timed steps. Checks finite, changing losses, every
     parameter's gradient and ``expect`` launches a step; returns the
-    launches, ms/step and peak memory (GiB)."""
+    launches, ms/step and peak memory (GiB). ``phase`` heads its line."""
     import torch
 
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
@@ -3552,7 +3578,7 @@ def option_steps(tag, rng, model_change=None, loss_change=None,
     check(all(a != b for a, b in zip(losses, losses[1:])),
           f"{tag}: the loss did not change between steps: {losses}")
     ms = float(np.mean(secs[1:])) * 1e3
-    print(f"options {tag}: losses {[f'{v:.7f}' for v in losses]}; "
+    print(f"{phase} {tag}: losses {[f'{v:.7f}' for v in losses]}; "
           f"{ms:.3f} ms/step (mean of {OPT_STEPS} warm steps, B={TRAIN_B}); "
           f"launches a step {expect}; peak memory {peak:.3f} GiB")
     del model, step, state, windows
@@ -4010,12 +4036,15 @@ def jax_checkpoint_tree(model, optimizer, step, epoch):
             "step": np.int64(step), "epoch": np.int64(epoch)}
 
 
-def write_jax_run(seed, work, data_dir):
-    """(a) A run as the JAX trainer leaves it: the training CLI's config as
-    run params, a short loss history, and ``checkpoint.msgpack`` of the
-    full-width model after ``JAX_RUN_STEPS`` port steps (seeded weights,
-    Adam after the clip) at B = 1. Returns the run id and what was written
-    (parameters and Adam state on the host)."""
+def write_jax_run(seed, work, data_dir, model_config=MODEL_CONFIG,
+                  tag="jax_run (a)"):
+    """(a) A run as the JAX trainer leaves it: the training CLI's config
+    (its model ``model_config``) as run params, a short loss history, and
+    ``checkpoint.msgpack`` of the full-width model after ``JAX_RUN_STEPS``
+    port steps (seeded weights, Adam after the clip) at B = 1; each
+    decoder's leaves are the JAX layer's (``conv`` or, with
+    ``use_upsample_conv: false``, ``ConvTranspose_0``). Returns the run id
+    and what was written (parameters and Adam state on the host)."""
     import torch
 
     from taming_event_flow_tpu_torch import tracking
@@ -4028,7 +4057,7 @@ def write_jax_run(seed, work, data_dir):
     )
 
     rng = np.random.default_rng([seed, 12])
-    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=seed)
+    model = build_model(model_config, num_bins=2, device=DEVICE, seed=seed)
     opt = build_optimizer(TRAIN_OPT, model.parameters(),
                           clip_grad=TRAIN_CLIP, device=DEVICE)
     step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS), "Iterative",
@@ -4039,14 +4068,23 @@ def write_jax_run(seed, work, data_dir):
         state, loss = step(state, train_window(rng, 1, device=DEVICE))
         losses.append(float(loss))
     check(all(math.isfinite(v) for v in losses),
-          f"jax_run (a): losses {losses}")
+          f"{tag}: losses {losses}")
     tree = jax_checkpoint_tree(model, opt, state.step, JAX_RUN_EPOCH)
     adam = tree["opt_state"]["1"]["0"]
     check(int(adam["count"]) == JAX_RUN_STEPS == state.step,
-          f"jax_run (a): Adam count {adam['count']}, steps {state.step}")
+          f"{tag}: Adam count {adam['count']}, steps {state.step}")
+    leaf = ("conv" if model_config.get("use_upsample_conv", True)
+            else "ConvTranspose_0")
+    for t in (tree["params"], adam["mu"], adam["nu"]):
+        decoders = {k: set(v) for k, v in t["arch"].items()
+                    if k.startswith("decoder_")}
+        check(len(decoders) == len(model.arch.decoders)
+              and all(v == {leaf} for v in decoders.values()),
+              f"{tag}: decoder leaves {decoders}, expected {leaf}")
     blob = flax_to_bytes(tree)
 
     config = train_cli_config(data_dir, seed).config
+    config["model"] = dict(config["model"], **model_config)
     tracking.set_tracking_uri(work)
     tracking.set_experiment(config["experiment"])
     runid = tracking.start_run().info.run_id
@@ -4065,21 +4103,24 @@ def write_jax_run(seed, work, data_dir):
         written[key] = {n: opt.state[p][key].cpu().clone() for n, p in named}
     n_params = sum(v.numel() for v in written["params"].values())
     check(all(bool(v.abs().sum() > 0) for v in written["exp_avg_sq"].values()),
-          "jax_run (a): an Adam second moment is all zero")
-    print(f"jax_run (a): run {runid}, checkpoint.msgpack {len(blob)} bytes "
+          f"{tag}: an Adam second moment is all zero")
+    print(f"{tag}: run {runid}, checkpoint.msgpack {len(blob)} bytes "
           f"({n_params} parameters with mu and nu, count {JAX_RUN_STEPS}, "
-          f"epoch {JAX_RUN_EPOCH}); step losses {losses}")
+          f"epoch {JAX_RUN_EPOCH}; decoders' leaves {leaf}); step losses "
+          f"{losses}")
     del model, opt, named
     torch.cuda.empty_cache()
     return runid, written
 
 
-def jax_warm_start(seed, work, train_data, runid, written):
+def jax_warm_start(seed, work, train_data, runid, written,
+                   model_config=MODEL_CONFIG, tag="jax_run (b)"):
     """(b) ``train_flow_torch.train --prev_runid <the JAX run>`` on the
-    card at the training CLI's values for two epochs: the parameters and
-    both Adam moments restored bit for bit, Adam's step ``JAX_RUN_STEPS``
-    on every parameter, the start epoch and the replayed history, finite
-    losses, the launches exact per step. Returns the launches."""
+    card at the training CLI's values (its model ``model_config``) for two
+    epochs: the parameters and both Adam moments restored bit for bit,
+    Adam's step ``JAX_RUN_STEPS`` on every parameter, the start epoch and
+    the replayed history, finite losses, the launches exact per step.
+    Returns the launches."""
     from taming_event_flow_tpu_torch.models import optax_state_to_torch
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
     from taming_event_flow_tpu_torch.tracking import (
@@ -4106,6 +4147,7 @@ def jax_warm_start(seed, work, train_data, runid, written):
 
     parser = train_cli_config(data_dir, seed)
     parser.config["loader"]["n_epochs"] = JAX_RUN_EPOCHS
+    parser.config["model"].update(model_config)
     reset_launches()
     run2, wall, text = run_train_cli(
         parser, work, {"H5Loader": loader_cls, "SectionTimer": Timer,
@@ -4113,39 +4155,39 @@ def jax_warm_start(seed, work, train_data, runid, written):
     launches = dict(LAUNCHES)
 
     check(f"Model restored from {runid}" in text,
-          "jax_run (b): the warm start did not restore the JAX run")
+          f"{tag}: the warm start did not restore the JAX run")
     check(sorted(loaded) == ["exp_avg", "exp_avg_sq", "params", "step"],
-          "jax_run (b): the optax state was not loaded")
+          f"{tag}: the optax state was not loaded")
     for key in ("params", "exp_avg", "exp_avg_sq"):
         check(sorted(loaded[key]) == sorted(written[key]),
-              f"jax_run (b) {key}: names differ")
+              f"{tag} {key}: names differ")
         for n, v in written[key].items():
             check(torch_equal(loaded[key][n], v),
-                  f"jax_run (b) {key} {n}: not bitwise what was written")
+                  f"{tag} {key} {n}: not bitwise what was written")
     steps_loaded = {float(v) for v in loaded["step"].values()}
     check(steps_loaded == {float(JAX_RUN_STEPS)},
-          f"jax_run (b): Adam steps {steps_loaded}")
+          f"{tag}: Adam steps {steps_loaded}")
 
     history = default_store().read_metric(run2, "loss")
     values = [v for _, v, _ in history]
     new_epochs = [s for _, _, s in history][len(JAX_RUN_HISTORY):]
     check(values[:len(JAX_RUN_HISTORY)] == JAX_RUN_HISTORY,
-          f"jax_run (b): history {values}")
+          f"{tag}: history {values}")
     check(new_epochs == list(range(JAX_RUN_EPOCH, JAX_RUN_EPOCHS)),
-          f"jax_run (b): epochs trained {new_epochs}")
+          f"{tag}: epochs trained {new_epochs}")
     new = values[len(JAX_RUN_HISTORY):]
-    check(all(math.isfinite(v) for v in new), f"jax_run (b) losses {new}")
+    check(all(math.isfinite(v) for v in new), f"{tag} losses {new}")
     steps = timers[0].counts.get("step_dispatch", 0)
-    check(steps >= 3 * len(new_epochs), f"jax_run (b): {steps} steps")
+    check(steps >= 3 * len(new_epochs), f"{tag}: {steps} steps")
     expect = {name: n * steps for name, n in TRAIN_LAUNCHES.items()}
     check(launches == expect,
-          f"jax_run (b) launches {launches}, expected {expect}")
+          f"{tag} launches {launches}, expected {expect}")
     ckpt, _ = load_checkpoint(run2)
     adam = {int(s["step"]) for s in ckpt["optimizer"]["state"].values()}
     check(adam == {ckpt["step"]}
           and JAX_RUN_STEPS < ckpt["step"] <= JAX_RUN_STEPS + steps,
-          f"jax_run (b): checkpoint step {ckpt['step']}, Adam steps {adam}")
-    print(f"jax_run (b): warm run {run2} from {runid}: {steps} steps over "
+          f"{tag}: checkpoint step {ckpt['step']}, Adam steps {adam}")
+    print(f"{tag}: warm run {run2} from {runid}: {steps} steps over "
           f"epochs {new_epochs}, losses {values}; parameters, exp_avg and "
           f"exp_avg_sq bitwise the written ones, Adam step "
           f"{JAX_RUN_STEPS}; launches {launches}; {wall:.2f} s")
@@ -4310,6 +4352,219 @@ def jax_run_phase(seed, work, train_data, eval_launches, gpu):
     return total, times
 
 
+# ------------------------------------------- transposed-conv phase (13)
+
+# use_upsample_conv: false, the JAX package's transposed-conv decoders
+TRANSPOSED_CONFIG = dict(MODEL_CONFIG, use_upsample_conv=False)
+MODEL_KINDS = {"default": MODEL_CONFIG, "transposed": TRANSPOSED_CONFIG}
+DECODER_REPS = 3  # profiled replays of a window's or a step's 40 calls
+
+
+def decoder_calls(model, run):
+    """The ``(decoder, input)`` of every decoder call ``run()`` makes
+    through ``model``, each input detached (a copy)."""
+    calls = []
+    hooks = [d.register_forward_pre_hook(
+        lambda m, a: calls.append((m, a[0].detach().clone())))
+        for d in model.arch.decoders]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def decoder_device_ms(calls, backward):
+    """Device ms of the decoder calls replayed on their inputs: forward
+    only in inference mode, or forward and backward (input and parameter
+    gradients) for a cotangent of ones."""
+    import torch
+
+    from taming_event_flow_tpu_torch.tools import bench_dma_gather
+
+    if not backward:
+        def replay():
+            with torch.inference_mode():
+                for m, x in calls:
+                    m(x)
+        return bench_dma_gather.device_ms(replay, reps=DECODER_REPS)
+    with torch.no_grad():
+        cots = [torch.ones_like(m(x)) for m, x in calls]
+    leaves = [x.requires_grad_() for _, x in calls]
+
+    def replay():
+        for (m, _), x, g in zip(calls, leaves, cots):
+            m(x).backward(g)
+    return bench_dma_gather.device_ms(replay, reps=DECODER_REPS)
+
+
+def transposed_windows(rng, gpu):
+    """(b): the DSEC cell (480x640, bf16) through ``EvalPipeline`` with the
+    transposed-conv RecEVFlowNet over ``N_WINDOWS`` windows: finite
+    metrics, 2 splats and 10 gathers a window; ms/pass in turns with the
+    default model on the same windows; one window in float32, card
+    against CPU. Returns the launches, the models, their pipelines and
+    the windows."""
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    windows = synthetic_windows(rng, N_WINDOWS)
+    models = {k: build_model(cfg, num_bins=2, device=DEVICE, seed=0)
+              for k, cfg in MODEL_KINDS.items()}
+    pipes = {k: EvalPipeline(DSEC_CONFIG, m, device=DEVICE)
+             for k, m in models.items()}
+    run_windows(pipes["default"], windows[:1])  # warm-up
+    reset_launches()
+    mets, secs = run_windows(pipes["transposed"], windows)
+    launches = dict(LAUNCHES)
+    expect = {"splat_bilinear": 2 * N_WINDOWS,
+              "gather_bilinear": PASSES * N_WINDOWS, "gather_fused": 0,
+              "row_gather": 0}
+    check(launches == expect,
+          f"transposed (b) launches {launches}, expected {expect}")
+    for i, m in enumerate(mets):
+        check_metrics(m, f"transposed (b) window {i}")
+        print(f"transposed (b) bf16 window {i}: {secs[i] * 1e3:.2f} ms  FWL "
+              f"{float(m['fwl']):.6f}  RSAT {float(m['rsat']):.6f}  AEE "
+              f"{float(m['aee']):.6f}")
+    warm = {k: [] for k in pipes}
+    for _ in range(TIMING_ROUNDS):
+        for k, pipe in pipes.items():
+            warm[k] += run_windows(pipe, windows)[1]
+    print(f"transposed (b) ms/pass (bf16, {len(warm['default'])} warm "
+          f"windows each, in turns) on {gpu}: " + ", ".join(
+              f"{k} {float(np.mean(v)) / PASSES * 1e3:.3f}"
+              for k, v in warm.items()))
+    check_f32_card_vs_cpu(models["transposed"], DSEC_CONFIG, windows[:1])
+    return launches, models, pipes, windows
+
+
+def transposed_profile(models, pipes, window, rng, out_dir, gpu):
+    """(e): for the default and the transposed-conv model, the device time
+    of one bf16 DSEC window and of one training step (B = 8) under the
+    profiler, and of their decoders' calls replayed alone: the default's
+    bilinear upsample, conv and ReLU, the transposed conv and ReLU. The
+    window's decoder calls are those of the model cast to bf16, as the
+    eval step casts it, over the window's passes."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import derive_count_input
+
+    xs = [derive_count_input(torch.from_numpy(b["event_list"]).to(DEVICE),
+                             RES).to(torch.bfloat16) for b in window]
+    batch = train_window(rng, TRAIN_B)
+    for kind, model in models.items():
+        net = copy.deepcopy(model).to(torch.bfloat16)
+
+        def passes():
+            carry = net.init_state(1, *RES, dtype=torch.bfloat16,
+                                   device=DEVICE)
+            with torch.inference_mode():
+                for x in xs:
+                    _, carry = net(x, carry)
+
+        calls = decoder_calls(net, passes)
+        dec_window = decoder_device_ms(calls, backward=False)
+        _, busy_window = profile_run(
+            lambda: run_windows(pipes[kind], [window]), out_dir,
+            f"window_{kind}", trace=False)
+        del net, calls
+
+        trained, step, state = build_trainer(
+            TRAIN_B, DEVICE, model_config=MODEL_KINDS[kind])
+        state, _ = step(state, batch)  # warm-up
+        calls = decoder_calls(trained, lambda: step(state, batch))
+        dec_step = decoder_device_ms(calls, backward=True)
+        _, busy_step = profile_run(lambda: step(state, batch), out_dir,
+                                   f"train_{kind}", trace=False)
+        print(f"transposed (e) {kind} decoders' device ms on {gpu}: "
+              f"{dec_window:.3f} a bf16 window ({len(xs)} passes; the "
+              f"window {busy_window:.3f} ms), {dec_step:.3f} a training "
+              f"step forward and backward (B = {TRAIN_B}, {len(calls)} "
+              f"calls; the step {busy_step:.3f} ms)")
+        del trained, step, state, calls
+        torch.cuda.empty_cache()
+
+
+def transposed_phase(seed, work, train_data, eval_launches, gpu,
+                     profile_dir):
+    """Phase 13: ``use_upsample_conv: false`` (the JAX package's
+    transposed-conv decoders) in the full-width RecEVFlowNet of
+    ``configs/train_flow.yml``. (a) The training cell beside the default
+    model, then card against CPU at B = 1; (b) the DSEC cell; (c) both
+    CLIs with the flag; (d) a JAX-format checkpoint with
+    ``ConvTranspose_0`` leaves and Adam moments, warm-started; (e) the
+    decoders' device time against the default's. Returns the launches of
+    the transposed model's runs."""
+    import torch
+
+    from taming_event_flow_tpu_torch.tracking import load_checkpoint
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 13])
+    runs, secs = [], {}
+
+    def lap(part):
+        secs[part] = time.perf_counter() - t_phase - sum(secs.values())
+
+    change = {"use_upsample_conv": False}
+    _, ms_default, _ = option_steps("(a) default", rng, phase="transposed")
+    launches, ms, _ = option_steps("(a) transposed", rng, model_change=change,
+                                   phase="transposed")
+    runs.append(launches)
+    print(f"transposed (a) ms/step on {gpu}: default {ms_default:.3f}, "
+          f"transposed {ms:.3f}")
+    lap("(a) steps")
+    card_vs_cpu(rng, model_config=TRANSPOSED_CONFIG, probes=False)
+    lap("(a) card vs cpu")
+
+    launches, models, pipes, windows = transposed_windows(rng, gpu)
+    runs.append(launches)
+    lap("(b)")
+
+    runid, launches, steps, _ = registry_train_cli(
+        "transposed (c)", {"model": TRANSPOSED_CONFIG}, seed, work,
+        train_data, True)
+    check(launches == {k: n * steps for k, n in TRAIN_LAUNCHES.items()},
+          f"transposed (c) train_cli launches {launches}")
+    runs.append(launches)
+    ckpt, _ = load_checkpoint(runid, map_location=DEVICE)
+    decoders = sorted({k.rsplit(".", 1)[0] for k in ckpt["model"]
+                       if k.startswith("arch.decoders.")})
+    check(decoders and all(d.endswith(".transposed_conv2d")
+                           for d in decoders),
+          f"transposed (c): the run's decoders {decoders}")
+    seqs = ["seq_a", "seq_b"]
+    data_dir, loader_cls = eval_cli_data(work, "transposed", {
+        s: dsec_sequence(3, seed * 10 + 50 + i) for i, s in enumerate(seqs)})
+    launches, _ = registry_eval_cli("transposed (c)", runid, {},
+                                    (data_dir, loader_cls, seqs), work,
+                                    eval_launches, True)
+    runs.append(launches)
+    lap("(c)")
+
+    runid, written = write_jax_run(seed, work, train_data[0],
+                                   model_config=TRANSPOSED_CONFIG,
+                                   tag="transposed (d)")
+    runs.append(jax_warm_start(seed, work, train_data, runid, written,
+                               model_config=TRANSPOSED_CONFIG,
+                               tag="transposed (d)"))
+    lap("(d)")
+
+    transposed_profile(models, pipes, windows[-1], rng,
+                       profile_dir or os.path.join(work, "profile"), gpu)
+    del models, pipes
+    torch.cuda.empty_cache()
+    lap("(e)")
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    print(f"phase 13 transposed: {time.perf_counter() - t_phase:.1f} s on "
+          f"{gpu} (" + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f"); launches {total}")
+    return total, (ms_default, ms)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4366,6 +4621,8 @@ def main(argv=None):
         jax_launches, stream_times = jax_run_phase(args.seed, work,
                                                    train_data, per_window,
                                                    gpu)
+        trans_launches, trans_ms = transposed_phase(
+            args.seed, work, train_data, per_window, gpu, args.profile)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4373,7 +4630,7 @@ def main(argv=None):
              "train": train_launches, "train_cli": cli_launches,
              "eval_cli": eval_cli_launches, "registry": registry_launches,
              "parallel": par_launches, "options": option_launches,
-             "jax_run": jax_launches}
+             "jax_run": jax_launches, "transposed": trans_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -4410,6 +4667,8 @@ def main(argv=None):
     print("parallel_ms (two gloo ranks sharing one card, not a scaling "
           "figure): " + ", ".join(f"{k} {v:.4f}"
                                   for k, v in par_times.items()))
+    print(f"transposed_train_ms_per_step {trans_ms[1]:.4f} (default "
+          f"{trans_ms[0]:.4f} in the same phase; B={TRAIN_B}, f32)")
     print("stream_ms_per_pass (480x640, the JAX run): " + ", ".join(
         f"{w} p50 {p50:.3f} p99 {p99:.3f}"
         for w, (p50, p99) in stream_times.items()))

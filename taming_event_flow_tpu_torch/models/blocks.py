@@ -5,16 +5,19 @@ Submodule names follow the reference torch state_dict
 (``taming_event_flow_tpu/models/port.py:9-14``): ``conv2d`` and
 ``norm_layer`` inside conv layers, ``reset_gate``/``update_gate``/
 ``out_gate`` inside the ConvGRU, ``conv1``/``conv2`` inside residual
-blocks. Initialisation matches the JAX package: feed-forward convs uniform
+blocks, ``transposed_conv2d`` inside a transposed-conv decoder.
+Initialisation matches the JAX package: feed-forward convs uniform
 ``+-sqrt(1 / in_channels)`` (or ``w_scale``) with zero bias, ConvGRU gates
-orthogonal with zero bias, norm scale one and bias zero; all of it drawn
-from an explicit ``torch.Generator`` (:func:`init_weights`).
+orthogonal with zero bias, transposed convs lecun-normal with zero bias,
+norm scale one and bias zero; all of it drawn from an explicit
+``torch.Generator`` (:func:`init_weights`).
 
-Every convolution is a :class:`Conv2d`, which follows Flax's ``dtype``:
-with a compute dtype set (:func:`set_compute_dtype`, the model's
-``compute_dtype``) it casts its input, weight and bias to it and returns
-that dtype, the parameters staying float32; the elementwise ops around it
-then follow type promotion, as JAX's do.
+Every convolution is a :class:`Conv2d` or a :class:`ConvTranspose2d`,
+which follow Flax's ``dtype``: with a compute dtype set
+(:func:`set_compute_dtype`, the model's ``compute_dtype``) they cast their
+input, weight and bias to it and return that dtype, the parameters staying
+float32; the elementwise ops around them then follow type promotion, as
+JAX's do.
 """
 
 from __future__ import annotations
@@ -67,14 +70,53 @@ class Conv2d(nn.Conv2d):
         return y + self.bias.to(dt)[:, None, None]
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Flax's ``nn.ConvTranspose(kernel_size=(k, k), strides=(2, 2),
+    padding="SAME")`` (``transpose_kernel=False``), which doubles ``H x
+    W``.
+
+    The weight is a torch ``ConvTranspose2d`` weight ``[in, out, k, k]``:
+    the Flax kernel ``[k, k, in, out]`` flipped in space (Flax does not
+    flip it, torch does) and permuted (``models/port.py``). lax's SAME
+    rule pads the stride-dilated input by ``pad_a = ceil(k / 2)`` low
+    (``k - 1`` for ``k < 3``) and ``k - pad_a`` high, which is torch's
+    ``padding = k - 1 - pad_a`` and an output padding of ``k - 2 pad_a``:
+    negative for an odd ``k >= 3``, so torch returns ``2H + 1`` rows and
+    the last row and column are cropped. The compute dtype is
+    :class:`Conv2d`'s."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3):
+        pad_a = kernel_size - 1 if kernel_size < 3 else -(-kernel_size // 2)
+        out_pad = kernel_size - 2 * pad_a
+        super().__init__(in_channels, out_channels, kernel_size, stride=2,
+                         padding=kernel_size - 1 - pad_a,
+                         output_padding=max(out_pad, 0))
+
+    def forward(self, x):
+        h, w = x.shape[2:]
+        dt = self.compute_dtype
+        if dt is None:
+            y = F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                   self.padding, self.output_padding)
+        else:
+            y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                   self.stride, self.padding,
+                                   self.output_padding)
+            y = y + self.bias.to(dt)[:, None, None]
+        return y[:, :, :2 * h, :2 * w]
+
+
 def set_compute_dtype(module: nn.Module, dtype) -> None:
     """Set the compute dtype (a ``torch.dtype``, a name such as
-    ``"bfloat16"``, or ``None`` for none) of every :class:`Conv2d` in
-    ``module``."""
+    ``"bfloat16"``, or ``None`` for none) of every :class:`Conv2d` and
+    :class:`ConvTranspose2d` in ``module``."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     for m in module.modules():
-        if isinstance(m, Conv2d):
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
             m.compute_dtype = dtype
 
 
@@ -209,6 +251,37 @@ class UpsampleConvLayer(ConvLayer):
         x = F.interpolate(x, scale_factor=2, mode="bilinear",
                           align_corners=False)
         return super().forward(x)
+
+
+class TransposedConvLayer(nn.Module):
+    """Transposed conv x2 upsample + optional activation, the decoder of
+    ``use_upsample_conv: false``: the JAX package's ``TransposedConvLayer``
+    (``taming_event_flow_tpu/models/blocks.py``), not the reference's
+    ``ConvTranspose2d(padding=k // 2, output_padding=1)``, which pads
+    otherwise (ROADMAP.md, section 3). As in the JAX layer, ``norm="IN"``
+    adds no norm (only BN would drop the bias there)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, activation: Optional[str] = "relu",
+                 norm=None):
+        super().__init__()
+        _check_norm(norm)
+        self.transposed_conv2d = ConvTranspose2d(in_channels, out_channels,
+                                                 kernel_size)
+        self.activation = get_activation(activation)
+
+    def init_weights(self, gen: torch.Generator):
+        # Flax's defaults: lecun_normal (a normal truncated at two standard
+        # deviations, rescaled to variance 1 / fan_in) with fan_in = k * k
+        # * in, and a zero bias
+        w = self.transposed_conv2d.weight
+        std = math.sqrt(1.0 / w[:, 0].numel()) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+        nn.init.zeros_(self.transposed_conv2d.bias)
+
+    def forward(self, x):
+        x = self.transposed_conv2d(x)
+        return x if self.activation is None else self.activation(x)
 
 
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:

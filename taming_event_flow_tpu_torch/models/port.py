@@ -11,12 +11,17 @@ are Flax ``[kh, kw, in, out]`` and torch ``[out, in, kh, kw]``::
   arch/encoder_<i>/Conv_0 (EVFlowNet)     <-> arch.encoders.<i>.conv2d
   arch/resblock_<j>/conv<k>               <-> arch.resblocks.<j>.conv<k>
   arch/decoder_<i>/conv/Conv_0            <-> arch.decoders.<i>.conv2d
+  arch/decoder_<i>/ConvTranspose_0        <-> arch.decoders.<i>.transposed_conv2d
   arch/pred_<i>/Conv_0                    <-> arch.preds.<i>.conv2d
   <head|conv1|conv2|conv3|pred>/Conv_0    <-> <name>.conv2d        (Fire)
   <gru1|gru2>/<gate>                      <-> <name>.<gate>         (Fire)
 
 With ``norm: IN`` each conv layer's ``GroupNorm_0`` (beside its ``Conv_0``)
-is the layer's ``norm_layer``, its ``scale`` the ``weight``.
+is the layer's ``norm_layer``, its ``scale`` the ``weight``. A
+``ConvTranspose_0`` kernel (``use_upsample_conv: false``) becomes a torch
+``ConvTranspose2d`` weight ``[in, out, kh, kw]``, flipped in space, since
+Flax's transposed conv does not flip its kernel and torch's does
+(``models/blocks.py: ConvTranspose2d``).
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ _MODULES = [
     ("arch/encoder_{i}/{layer}", "arch.encoders.{i}.{layer}"),
     ("arch/resblock_{i}/{conv}", "arch.resblocks.{i}.{conv}"),
     ("arch/decoder_{i}/conv/{layer}", "arch.decoders.{i}.{layer}"),
+    ("arch/decoder_{i}/ConvTranspose_0",
+     "arch.decoders.{i}.transposed_conv2d"),
     ("arch/pred_{i}/{layer}", "arch.preds.{i}.{layer}"),
     ("{fire}/Conv_0", "{fire}.conv2d"),
     ("{gru}/{gate}", "{gru}.{gate}"),
@@ -98,7 +105,10 @@ def flax_params_to_state_dict(params_np: Mapping) -> Dict[str, torch.Tensor]:
         name = _rename(module, _TO_TORCH, _LAYER,
                        "No port module for Flax parameter")
         value = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel":
+        if leaf == "kernel" and name.endswith(".transposed_conv2d"):
+            out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.transpose(value[::-1, ::-1], (2, 3, 0, 1))))
+        elif leaf == "kernel":
             out[f"{name}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(np.transpose(value, (3, 2, 0, 1))))
         elif leaf == "bias":
@@ -114,7 +124,7 @@ def state_dict_to_flax_params(state_dict: Mapping) -> Dict:
     """The inverse of :func:`flax_params_to_state_dict`: a registry model's
     ``state_dict`` (tensors on any device, or numpy arrays) as the Flax
     ``params`` tree of numpy float32 arrays, conv kernels in Flax's
-    ``[kh, kw, in, out]``.
+    ``[kh, kw, in, out]`` (a transposed conv's flipped back).
 
     :raises KeyError: on a parameter the Flax models have no leaf for.
     """
@@ -130,6 +140,9 @@ def state_dict_to_flax_params(state_dict: Mapping) -> Dict:
             flax_leaf = "bias"
         elif leaf == "weight" and name.endswith(".norm_layer"):
             flax_leaf = "scale"
+        elif leaf == "weight" and name.endswith(".transposed_conv2d"):
+            flax_leaf = "kernel"
+            value = np.transpose(value, (2, 3, 0, 1))[::-1, ::-1]
         elif leaf == "weight" and value.ndim == 4:
             flax_leaf = "kernel"
             value = np.transpose(value, (2, 3, 1, 0))

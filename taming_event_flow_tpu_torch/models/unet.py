@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from .blocks import ConvLayer, RecurrentConvLayer, ResidualBlock, \
-    UpsampleConvLayer
+    TransposedConvLayer, UpsampleConvLayer
 
 
 def encoder_channels(base_channels: int, num_encoders: int,
@@ -38,7 +38,9 @@ class _MultiResUNet(nn.Module):
     """The two UNets' shared body (reference ``arch.py:6-195``):
     ``num_encoders`` strided encoders (``encoder`` builds each), the
     residual bottleneck and the multi-res decoder, whose previous-scale
-    prediction is concatenated into the next decoder's input."""
+    prediction is concatenated into the next decoder's input. Each decoder
+    upsamples bilinearly and convolves (``use_upsample_conv``, the
+    default) or is a stride-2 transposed conv."""
 
     def __init__(self, encoder, num_bins: int = 2, base_channels: int = 64,
                  num_encoders: int = 4, num_residual_blocks: int = 2,
@@ -50,10 +52,6 @@ class _MultiResUNet(nn.Module):
                  final_w_scale: Optional[float] = None,
                  ff_act: Optional[str] = "relu"):
         super().__init__()
-        if not use_upsample_conv:
-            raise NotImplementedError(
-                "use_upsample_conv: false (TransposedConvLayer) is not "
-                "ported yet (ROADMAP.md)")
         if skip_type not in ("sum", "concat"):
             raise ValueError(f"Unknown skip_type {skip_type!r}")
         self.skip_type = skip_type
@@ -72,6 +70,8 @@ class _MultiResUNet(nn.Module):
         self.resblocks = nn.ModuleList(
             ResidualBlock(outs[-1], activation=ff_act, norm=norm)
             for _ in range(num_residual_blocks))
+        up_type = (UpsampleConvLayer if use_upsample_conv
+                   else TransposedConvLayer)
         self.decoders = nn.ModuleList()
         self.preds = nn.ModuleList()
         for i, out_ch in enumerate(reversed(ins)):
@@ -79,7 +79,7 @@ class _MultiResUNet(nn.Module):
                             if skip_type == "concat" else 0)
             if i > 0:
                 dec_in += num_output_channels
-            self.decoders.append(UpsampleConvLayer(
+            self.decoders.append(up_type(
                 dec_in, out_ch, kernel_size, activation=ff_act, norm=norm))
             self.preds.append(ConvLayer(
                 out_ch, num_output_channels, kernel_size=1,

@@ -86,7 +86,18 @@ def load_reference_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     :class:`~..models.RecEVFlowNet`, whose names are the reference's.
 
     A pickled module is unpickled in full (and its package must be
-    importable): load only files you trust."""
+    importable): load only files you trust.
+
+    :raises ValueError: for a reference transposed-conv decoder
+        (``transposed_conv2d``): the reference pads it otherwise than the
+        JAX package and the port (ROADMAP.md, section 3), so its weights
+        would load into a layer of other semantics."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
     state_dict = obj if isinstance(obj, dict) else obj.state_dict()
+    refused = sorted(k for k in state_dict if ".transposed_conv2d." in k)
+    if refused:
+        raise ValueError(
+            f"{refused[0]}: the reference's transposed-conv decoder pads "
+            "otherwise than the port's (ROADMAP.md, section 3); its "
+            "weights do not load")
     return {k: v.detach().cpu() for k, v in state_dict.items()}

@@ -307,6 +307,39 @@ def test_eval_reads_a_jax_only_checkpoint(trained_run, evaluated, tmp_path,
                                        err_msg=f"{metric} {seq}")
 
 
+def test_eval_reads_a_jax_transposed_conv_run(trained_run, tmp_path,
+                                              capsys):
+    """A JAX run of RecEVFlowNet with ``use_upsample_conv: false``, which
+    holds only ``checkpoint.msgpack`` (``ConvTranspose_0`` decoders):
+    the port's CLI restores it and matches ``eval_flow.py`` on the run
+    within the pipeline-parity tolerance."""
+    _, ds, _ = trained_run
+    cfg = train_cfg(ds)
+    cfg["model"]["use_upsample_conv"] = False
+    cfg["loader"]["n_epochs"] = 1
+    path = write_cfg(tmp_path / "train.yml", cfg)
+    runid = train_flow.train(argparse.Namespace(
+        config=path, path_mlflow=str(tmp_path), path_cache="",
+        prev_runid=""), JaxParser(path))
+    model_dir = os.path.join(str(tmp_path), "mlruns", "0", runid,
+                             "artifacts", "model")
+    assert os.listdir(model_dir) == ["checkpoint.msgpack"]
+    path = write_cfg(tmp_path / "eval.yml", eval_cfg(ds, store=False))
+    jres = run_cli(eval_flow, JaxParser, path, tmp_path, runid,
+                   tmp_path / "results_jax")
+    capsys.readouterr()
+    got = run_cli(eval_flow_torch, YAMLParser, path, tmp_path, runid,
+                  tmp_path / "results_port", device="cpu")
+    assert f"Model restored from {runid}" in capsys.readouterr().out
+    assert sorted(got) == sorted(jres)
+    for metric, seqs in jres.items():
+        assert sorted(got[metric]) == sorted(seqs)
+        for seq, v in seqs.items():
+            np.testing.assert_allclose(float(got[metric][seq]), float(v),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{metric} {seq}")
+
+
 def test_eval_without_checkpoint_warns(trained_run, tmp_path, capsys):
     """A run with no checkpoint at all evaluates the seeded initial
     weights, with the warning of ``eval_flow.py``."""

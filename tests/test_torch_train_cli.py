@@ -139,22 +139,25 @@ def test_warm_start_resume(trained_run, capsys):
     assert adam == {ckpt2["step"]}
 
 
-@pytest.mark.parametrize("change,error", [
-    ({"parallel": {"event": 2}}, ValueError),
-    ({"parallel": {"data": 2}}, ValueError),
-    ({"model": {"norm": "BN"}}, NotImplementedError),
-    ({"model": {"compute_dtype": "bfloat16"}}, None),
-    ({"model": {"use_upsample_conv": False}}, NotImplementedError),
+@pytest.mark.parametrize("change,error,rtol", [
+    ({"parallel": {"event": 2}}, ValueError, None),
+    ({"parallel": {"data": 2}}, ValueError, None),
+    ({"model": {"norm": "BN"}}, NotImplementedError, None),
+    ({"model": {"compute_dtype": "bfloat16"}}, None, BF16_LOSS_RTOL),
+    ({"model": {"use_upsample_conv": False}}, None, 1e-4),
 ], ids=["event", "data", "norm", "compute_dtype", "upsample_conv"])
-def test_unported_configs_raise(workspace, tmp_path, change, error):
-    """The model options the port lacks raise ``NotImplementedError``; a
-    ``parallel`` mesh larger than the world (here one process) raises
-    ``ValueError``, as ``train_flow.py`` does; each names ROADMAP.md.
-    ``model.compute_dtype``, once refused here, is ported: its case
-    (``error`` None) holds the port's CLI to ``train_flow.py``'s epoch loss
-    from the same initial weights, at bf16 level (2e-2 relative, measured
-    2.1e-3: the packages' bf16 sigmoids round apart,
-    ``tests/test_torch_options.py``)."""
+def test_unported_configs_raise(workspace, tmp_path, change, error, rtol):
+    """``norm: BN``, which neither package trains, raises
+    ``NotImplementedError``; a ``parallel`` mesh larger than the world
+    (here one process) raises ``ValueError``, as ``train_flow.py`` does;
+    each names ROADMAP.md. ``model.compute_dtype`` and
+    ``use_upsample_conv: false``, once refused here, are ported: their
+    cases (``error`` None) hold the port's CLI to ``train_flow.py``'s
+    epoch loss from the same initial weights, at ``rtol``: bf16 level for
+    the first (2e-2 relative, measured 2.1e-3: the packages' bf16 sigmoids
+    round apart, ``tests/test_torch_options.py``), the suite's float32
+    loss-history tolerance of 1e-4 for the transposed-conv decoder
+    (measured 1.8e-8)."""
     _, ds = workspace
     cfg = train_cfg(ds, n_epochs=1)
     for section, values in change.items():
@@ -178,7 +181,7 @@ def test_unported_configs_raise(workspace, tmp_path, change, error):
     got = losses(tmp_path / "port",
                  run_port(path, tmp_path / "port", prev_runid=init))
     assert len(ref) == 1 and np.isfinite(ref).all()
-    np.testing.assert_allclose(got, ref, rtol=BF16_LOSS_RTOL)
+    np.testing.assert_allclose(got, ref, rtol=rtol)
 
 
 def test_train_raises_without_a_card(workspace, tmp_path, monkeypatch):
