@@ -197,7 +197,36 @@ one NVIDIA card.
    moments bitwise. (e) The decoders' device ms in a bf16 window and a
    training step, replayed alone, against the default's upsample and
    conv, beside the whole window's and step's device time.
-14. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+14. Determinism phase: one seed gives one run on the card. (a) The splat
+   kernel twice on identical inputs at the DSEC shape (M = 655,360, C = 4,
+   480x640, rounded and fractional), the training shape (B = 8, C = 4,
+   128x128) and the ``d_maps`` shape (C = 2): every bit equal, within the
+   kernel tolerance of its plain version and within its fixed-point error
+   bound of a float64 sum of the same products; 65,536 points on one
+   pixel with random-sign values over 1e-6 to 1e3, bitwise equal over 20
+   calls and within the bound of the exact sum; NaN and +-Inf values where
+   the plain version puts them; each lane of a batched call bitwise the
+   lane alone and padded. (b) The training cell from one seed for 1 + 5
+   steps, and with ``use_upsample_conv: false``, ``norm: IN``,
+   ``compute_dtype: bfloat16`` and the Linear loss for 1 + 2 steps, in
+   this process and in a child: every step's loss, every parameter, Adam's
+   moments and the carry bitwise equal. (c) One training step (default
+   and transposed-conv decoders) in a child process under
+   ``torch.use_deterministic_algorithms(True)`` with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: it must run to its end, so no op
+   that torch flags is left on the path (``torch.histc`` must raise
+   there; a step with ``F.interpolate``'s backward is printed, which
+   torch 2.11 does not flag). (d) The
+   training CLI at step 7's values (one epoch) twice: every step's loss
+   and the epoch loss bitwise equal. (e) ``EvalPipeline`` on 3 DSEC windows
+   twice, unrectified and rectified: FWL, RSAT, AEE and ``flow_bw`` bitwise
+   equal. The launches of (b), (d) and (e) must be exact. (f) Printed, with
+   no limit: the splat's event and device ms at the three shapes, both
+   upsample backwards twice at a decoder's shape, and one profiled
+   training step's device time split into convolution backward, upsample
+   backward and splat, as the port runs it and with ``cudnn.deterministic``
+   off and ``F.interpolate``'s atomic backward.
+15. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -208,6 +237,7 @@ It imports nothing of JAX or the JAX package.
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -538,7 +568,8 @@ def check_splat(name, loc, values, counts_exact):
 
 def splat_times(loc, values):
     """``(event ms, device ms of splat_kernel alone)`` on these inputs (the
-    call's zero fill, the same for every input, left out)."""
+    call's zero fill, maximum and finish pass, the same for every input of
+    one shape, left out)."""
     from taming_event_flow_tpu_torch.ops import cuda_warp
 
     call = lambda: cuda_warp.splat_bilinear(loc, values, RES)  # noqa: E731
@@ -634,8 +665,8 @@ def kernel_phase(rng, rng_cluster):
         "replaces": "taming_event_flow_tpu/ops/pallas_warp.py:128",
         "max_abs_err": splat_err,
         "ms": ms,
-        # all the call runs on the device: the output's zero fill and the
-        # kernel, like the library call's torch.zeros and index_put_
+        # all the call runs on the device: the scratch's zero fill and the
+        # three kernels, like the library call's torch.zeros and index_put_
         "device_ms": device_ms(call),
         "kernel_only_device_ms": kernel_ms,
         "host_us": host_us(call),
@@ -1290,9 +1321,8 @@ def rectified_phase(rng, model, n_windows, ms_plain, profile_dir):
         check_metrics(m, f"rectified window {i}")
 
     # the same windows with the host-built input shipped (no index): the
-    # metrics agree (same inputs, checked bitwise below; the splats'
-    # atomics may reorder the RSAT/FWL sums), then both routes are timed
-    # in turns over TIMING_ROUNDS passes through the windows
+    # metrics agree (same inputs, checked bitwise below), then both routes
+    # are timed in turns over TIMING_ROUNDS passes through the windows
     host = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
     host_mets, _ = run_windows(host, windows)
     for i, (a, b) in enumerate(zip(mets, host_mets)):
@@ -2893,10 +2923,12 @@ PAR_TIMEOUT = 900.0  # seconds the ranks of one spawn may take
 PAR_CLI_PAD = 16384  # loader.n_events_pad of the CLI runs of (e)
 PAR_EVAL_FRAMES = 4  # GT frames of each eval CLI sequence of (e): 2 windows
 PAR_LOSS_RTOL = 1e-5  # the CLI's first steps' losses, 2 ranks against 1
-# the CLI's epoch loss, 2 ranks against 1: one-rank runs on the card part
-# after their second step (the splat's atomics, the loss's gradient jumps
-# and Adam's sign-like first updates): three one-rank runs of the event
-# case spread 2.04e-3 over 4 steps, two two-rank ones lay within 2.41e-3
+# the CLI's epoch loss, 2 ranks against 1: a one-rank run repeats bit for
+# bit (phase 14), but the event axis splits each splat and loss sum into
+# two shards and the data axis sums the gradient over two ranks, so the
+# float sums take another order; the loss's gradient jumps in the flows and
+# Adam's first updates are sign-like, so that reordering grows over the
+# steps: two-rank runs lay within 2.41e-3 of a one-rank run over 4 steps
 # (tools/bench_cli_spread.py; PERF.md, Findings)
 PAR_EPOCH_RTOL = 1e-2
 STEEP_G = 1e-7  # |g| under 10 x Adam's eps: the first update is steep in g
@@ -3119,6 +3151,7 @@ def nccl_world_of_one(rank, world, url, seed):
         LAUNCHES,
         kernel_build,
         reset_launches,
+        set_deterministic,
         set_tf32,
     )
     from taming_event_flow_tpu_torch.parallel import (
@@ -3131,6 +3164,7 @@ def nccl_world_of_one(rank, world, url, seed):
                             "process_id": rank}, device="cuda:0"),
           "no process group")
     set_tf32(False)
+    set_deterministic()
     kernel_build.load()
     out = {"backend": dist.get_backend()}
     check(out["backend"] == "nccl", f"backend {out['backend']}")
@@ -3223,6 +3257,7 @@ def mesh_rank(rank, world, url, spec):
         LAUNCHES,
         kernel_build,
         reset_launches,
+        set_deterministic,
         set_tf32,
     )
     from taming_event_flow_tpu_torch.parallel import (
@@ -3237,6 +3272,7 @@ def mesh_rank(rank, world, url, spec):
         backend=spec["backend"], device=f"cuda:{rank if nccl else 0}"),
         "no process group")
     set_tf32(False)
+    set_deterministic()
     kernel_build.load()
     reset_launches()
     out = {"backend": dist.get_backend()}
@@ -3715,9 +3751,8 @@ def wire_windows(rng):
 
 def wire_phase(rng, gpu):
     """(c): the DSEC cell on the plain, packed and u32 wires, unrectified
-    and rectified: metrics across wires (within the kernel tolerance; the
-    splats' atomics may reorder sums, and whether they are bitwise is
-    printed), launches a window (on the rectified u32 wire 2 row gathers:
+    and rectified: metrics across wires (within the kernel tolerance, and
+    whether they are bitwise is printed), launches a window (on the rectified u32 wire 2 row gathers:
     the coordinate lookup and the count remap), bytes uploaded a window
     and ms/pass timed in turns, beside the staging alone (host stacking,
     packing and the upload, synchronised). Returns the launches."""
@@ -4565,6 +4600,659 @@ def transposed_phase(seed, work, train_data, eval_launches, gpu,
     return total, (ms_default, ms)
 
 
+# ------------------------------------------------ determinism phase (14)
+
+DET_PILE = 65_536  # points on one pixel in the adversarial splat
+DET_REPEATS = 20  # launches of the adversarial splat, every one bitwise
+DET_STEPS = TRAIN_STEPS  # after one warm-up, the default training cell
+DET_OPTION_STEPS = 2  # after one warm-up, each option's training cell
+# each option's (model change, loss): the cells phases 9, 11 and 13 train
+DET_OPTIONS = {
+    "transposed": ({"use_upsample_conv": False}, "Iterative"),
+    "norm IN": ({"norm": "IN"}, "Iterative"),
+    "bf16": ({"compute_dtype": "bfloat16"}, "Iterative"),
+    "Linear": ({}, "Linear"),
+}
+DET_TIMEOUT = 600.0  # seconds the detector's child process may take
+DET_MARK = "determinism detector: ran to its end"
+
+
+def splat_bound_check(tag, loc, values, res, out):
+    """``out`` (the kernel's splat) against a float64 sum of the same
+    float32 products: within the fixed point's bound, ``n 2^(-k-1)`` a
+    pixel of ``n`` non-zero products, plus half an ulp of ``out`` (its one
+    rounding) and the float64 sum's own rounding. Returns the largest
+    share of the bound used."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    b, m, c = values.shape
+    h, w = res
+    exact = torch.zeros(b * h * w, c, dtype=torch.float64, device=DEVICE)
+    taps = torch.zeros_like(exact)
+    mag = torch.zeros_like(exact)
+    base = (torch.arange(b, device=DEVICE) * (h * w))[:, None]
+    for idx, weight in cuda_warp._taps(loc, h, w):
+        prod = (values * weight[..., None]).reshape(-1, c)  # f32, as rounded
+        flat = (idx + base).reshape(-1)
+        exact.index_add_(0, flat, prod.double())
+        taps.index_add_(0, flat, (prod != 0).double())
+        mag.index_add_(0, flat, prod.double().abs())
+    ks = cuda_warp.splat_scale_exponent(values)  # one a lane
+    step = torch.tensor([2.0 ** (-k - 1) for k in ks], dtype=torch.float64,
+                        device=DEVICE).repeat_interleave(h * w)[:, None]
+    got = out.reshape(-1, c)
+    ulp = (torch.nextafter(got.abs(), torch.tensor(math.inf, device=DEVICE))
+           - got.abs()).double()
+    bound = taps * step + ulp / 2 + taps * mag * 2.0 ** -52
+    err = (got.double() - exact).abs()
+    share = float((err / bound.clamp_min(1e-300)).max())
+    check(bool((err <= bound).all()),
+          f"determinism (a) splat {tag}: beyond the fixed-point bound "
+          f"(k = {ks}, {share:.3f} of it)")
+    return f"{min(ks)}..{max(ks)}" if len(set(ks)) > 1 else ks[0], share
+
+
+def splat_twice(tag, loc, values, res):
+    """The splat kernel twice on identical inputs, every bit equal; against
+    its plain version within the kernel tolerance and against a float64
+    sum within its error bound. Returns the output."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    first = cuda_warp.splat_bilinear(loc, values, res)
+    again = cuda_warp.splat_bilinear(loc, values, res)
+    plain = cuda_warp.splat_bilinear_plain(loc, values, res)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(first), bits(again)),
+          f"determinism (a) splat {tag}: two calls differ")
+    err = float((first - plain).abs().max())
+    check(torch.allclose(first, plain, rtol=KERNEL_RTOL, atol=KERNEL_ATOL),
+          f"determinism (a) splat {tag}: {err} from its plain version")
+    k, share = splat_bound_check(tag, loc, values, res, first)
+    print(f"determinism (a) splat {tag} [B, M, C] = {list(values.shape)} at "
+          f"{res[0]}x{res[1]}: two calls bitwise equal; plain version "
+          f"max abs err {err:.3e}; k = {k}, float64 sum within {share:.3f} "
+          f"of the bound")
+    return first
+
+
+def lane_by_lane(loc, values, whole):
+    """Each lane of a batched splat (``whole``) bitwise the splat of that
+    lane alone and of that lane padded with as many zero rows at (0, 0):
+    its fixed-point scale is its own (the batched sweep's ``[T*B]`` splat
+    against the looped sweep's)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    res = tuple(whole.shape[1:3])
+    for b in range(values.shape[0]):
+        one = cuda_warp.splat_bilinear(loc[b:b + 1].contiguous(),
+                                       values[b:b + 1].contiguous(), res)
+        padded = cuda_warp.splat_bilinear(
+            torch.cat([loc[b:b + 1], torch.zeros_like(loc[b:b + 1])], 1),
+            torch.cat([values[b:b + 1], torch.zeros_like(values[b:b + 1])],
+                      1), res)
+        check(torch.equal(bits(one), bits(whole[b:b + 1]))
+              and torch.equal(bits(padded), bits(one)),
+              f"determinism (a) lane {b}: alone, padded and in the batch "
+              f"differ")
+    print(f"determinism (a) splat lane by lane: each of {values.shape[0]} "
+          f"lanes alone and padded with zero rows bitwise its lane of the "
+          f"batched call")
+
+
+def adversarial_splat(rng):
+    """``DET_PILE`` points on one pixel (an integer location: each adds
+    its value), random signs, magnitudes log-uniform over 1e-6 to 1e3, C =
+    4: ``DET_REPEATS`` calls bitwise equal, each channel within the bound
+    of its exactly rounded sum (``math.fsum``)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    y, x = 123, 456
+    loc = torch.tensor([float(y), float(x)], device=DEVICE).repeat(
+        1, DET_PILE, 1).contiguous()
+    vals = (10.0 ** rng.uniform(-6, 3, (DET_PILE, 4))
+            * rng.choice([-1.0, 1.0], (DET_PILE, 4))).astype(np.float32)
+    values = torch.from_numpy(vals)[None].to(DEVICE)
+    outs = [cuda_warp.splat_bilinear(loc, values, RES)
+            for _ in range(DET_REPEATS)]
+    plain = cuda_warp.splat_bilinear_plain(loc, values, RES)
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(outs[0]), bits(o)) for o in outs[1:]),
+          f"determinism (a) adversarial splat: {DET_REPEATS} calls differ")
+    out = outs[0]
+    rest = out.clone()
+    rest[0, y, x] = 0
+    check(not bool(rest.any()), "determinism (a) adversarial: another pixel")
+    (k,) = cuda_warp.splat_scale_exponent(values)
+    got = out[0, y, x].double().cpu().numpy()
+    worst = 0.0
+    for ch in range(4):
+        exact = math.fsum(vals[:, ch].astype(np.float64))
+        bound = (DET_PILE * 2.0 ** (-k - 1)
+                 + float(np.spacing(np.float32(abs(got[ch])))) / 2
+                 + float(np.spacing(abs(exact))) / 2)
+        err = abs(float(got[ch]) - exact)
+        check(err <= bound, f"determinism (a) adversarial channel {ch}: "
+              f"{err} from the exact sum {exact}, bound {bound}")
+        worst = max(worst, err / bound)
+    plain_err = float((plain[0, y, x].double().cpu()
+                       - torch.tensor([math.fsum(vals[:, ch].astype(
+                           np.float64)) for ch in range(4)])).abs().max())
+    print(f"determinism (a) adversarial splat, {DET_PILE} points on one "
+          f"pixel, |v| in [1e-6, 1e3]: {DET_REPEATS} calls bitwise equal; "
+          f"k = {k}, within {worst:.3f} of the bound of the exact sum "
+          f"(the plain version's float32 sum: {plain_err:.3e} from it)")
+
+
+def nonfinite_splat(rng):
+    """NaN and +-Inf values at fractional in-frame locations (all four taps
+    of non-zero weight), among finite ones: NaN and each infinity where
+    the plain version's float sums put them, the finite pixels within the
+    kernel tolerance, two calls bitwise equal. (At an integer coordinate the
+    kernel issues the one tap of weight 1, where the plain version also
+    adds 0 x v to the zero-weight neighbours: an infinite value makes NaN
+    there, as the kernel's gather counterpart documents.)"""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    nan, inf = float("nan"), float("inf")
+    special = [  # ((y, x), values): NaN; +Inf; -Inf; +Inf + -Inf; Inf + 5
+        ((10.25, 20.5), (nan, 1, 1, 1)), ((30.25, 40.5), (1, inf, 1, 1)),
+        ((50.25, 60.5), (1, 1, -inf, 1)), ((70.25, 80.5), (inf, 1, 1, 1)),
+        ((70.25, 80.5), (-inf, 1, 1, 1)), ((90.25, 100.5), (1, 1, 1, inf)),
+        ((90.25, 100.5), (1, 1, 1, 5))]
+    n = 10_000
+    h, w = RES
+    loc = np.stack([rng.uniform(0, h - 1, n), rng.uniform(0, w - 1, n)],
+                   -1).astype(np.float32)
+    vals = rng.normal(size=(n, 4)).astype(np.float32)
+    loc[: len(special)] = [p for p, _ in special]
+    vals[: len(special)] = [v for _, v in special]
+    loc = torch.from_numpy(loc)[None].to(DEVICE)
+    values = torch.from_numpy(vals)[None].to(DEVICE)
+    got = cuda_warp.splat_bilinear(loc, values, RES)
+    again = cuda_warp.splat_bilinear(loc, values, RES)
+    ref = cuda_warp.splat_bilinear_plain(loc, values, RES)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(got), bits(again)),
+          "determinism (a) non-finite: two calls")
+    for name, fn in (("NaN", torch.isnan), ("+Inf", torch.isposinf),
+                     ("-Inf", torch.isneginf)):
+        check(torch.equal(fn(got), fn(ref)),
+              f"determinism (a) non-finite: {name} not where the plain "
+              f"version puts it")
+    fin = torch.isfinite(ref)
+    check(torch.allclose(got[fin], ref[fin], rtol=KERNEL_RTOL,
+                         atol=KERNEL_ATOL), "determinism (a) non-finite: "
+          "finite pixels")
+    print(f"determinism (a) non-finite values: {int(torch.isnan(got).sum())}"
+          f" NaN, {int(torch.isposinf(got).sum())} +Inf, "
+          f"{int(torch.isneginf(got).sum())} -Inf outputs where the plain "
+          f"version has them; two calls bitwise equal")
+
+
+def det_splats(rng):
+    """(a): the splat at the DSEC, training and ``d_maps`` shapes, the
+    adversarial pile, non-finite values. Returns the inputs of the three
+    shapes for (f)."""
+    import torch
+
+    lo, vals, _ = splat_inputs(rng, *window_points(rng, PASSES))
+    lo_r = torch.round(lo)
+    splat_twice("DSEC rounded", lo_r, vals, RES)
+    splat_twice("DSEC fractional", lo, vals, RES)
+    tloc = torch.from_numpy(fused_points(rng, TRAIN_B, *TRAIN_RES)).to(DEVICE)
+    iwe = rng.uniform(0, 1, (TRAIN_B, FUSED_M, 4)).astype(np.float32)
+    iwe[:, -FUSED_M // 4:] = 0.0  # rows off the gradient path
+    iwe = torch.from_numpy(iwe).to(DEVICE)
+    whole = splat_twice("training", tloc, iwe, TRAIN_RES)
+    lane_by_lane(tloc, iwe, whole)
+    cot = torch.from_numpy((rng.normal(size=(TRAIN_B, FUSED_M, 2)) * 1e-4)
+                           .astype(np.float32)).to(DEVICE)
+    splat_twice("d_maps", tloc, cot, TRAIN_RES)
+    adversarial_splat(rng)
+    nonfinite_splat(rng)
+    return {"DSEC rounded (C = 4)": (lo_r, vals, RES),
+            "training (C = 4)": (tloc, iwe, TRAIN_RES),
+            "d_maps (C = 2)": (tloc, cot, TRAIN_RES)}
+
+
+def det_train_run(model_change, warping, n_steps, seed):
+    """One seeded run of the training cell (B = 8) with ``model_change`` and
+    the ``warping`` loss: the seeded model, ``n_steps`` windows drawn from
+    ``seed``. Returns every step's loss, the parameters, each parameter's
+    Adam moments and step, and the carry."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.objectives import LossConfig
+    from taming_event_flow_tpu_torch.training import (
+        build_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+
+    model = build_model(dict(MODEL_CONFIG, **model_change), num_bins=2,
+                        device=DEVICE, seed=0)
+    params = list(model.parameters())
+    opt = build_optimizer(TRAIN_OPT, params, clip_grad=TRAIN_CLIP,
+                          device=DEVICE)
+    step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS), warping,
+                           flow_scaling=FLOW_SCALING, res=TRAIN_RES)
+    state = init_train_state(model, TRAIN_B, *TRAIN_RES, device=DEVICE)
+    rng = np.random.default_rng(seed)
+    losses = []
+    for _ in range(n_steps):
+        state, loss = step(state, train_window(rng, TRAIN_B))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out = {"loss": torch.stack(losses)}
+    out.update({f"param {k}": v.detach().clone()
+                for k, v in model.state_dict().items()})
+    for i, p in enumerate(params):
+        for key, v in opt.state[p].items():
+            out[f"adam {i} {key}"] = torch.as_tensor(v).clone()
+    out.update({f"carry {i}": c.clone() for i, c in enumerate(state.carry)})
+    return out
+
+
+def det_cases():
+    """(b)'s configurations: ``(tag, model change, loss, steps)``."""
+    return [("default", {}, "Iterative", DET_STEPS + 1)] + [
+        (tag, change, warping, DET_OPTION_STEPS + 1)
+        for tag, (change, warping) in DET_OPTIONS.items()]
+
+
+def det_digests(seed, run_log=None):
+    """One seeded run of each of (b)'s configurations: per configuration,
+    each tensor's dtype, shape and SHA-256 of its bytes. ``run_log`` gets
+    each run's losses."""
+    import torch
+
+    out = {}
+    for i, (tag, change, warping, n) in enumerate(det_cases()):
+        run = det_train_run(change, warping, n, seed * 100 + i)
+        out[tag] = {k: f"{v.dtype} {list(v.shape)} " + hashlib.sha256(
+            v.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+            .numpy().tobytes()).hexdigest() for k, v in run.items()}
+        if run_log is not None:
+            run_log[tag] = run["loss"].tolist()
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+DET_DIGESTS = "determinism digests: "
+
+
+def det_train_child(seed):
+    """(b)'s second runs, in a process of their own: prints the digests of
+    :func:`det_digests` as one JSON line."""
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
+
+    set_tf32(False)
+    set_deterministic()
+    kernel_build.load()
+    print(DET_DIGESTS + json.dumps(det_digests(seed)), flush=True)
+
+
+def det_training(seed):
+    """(b), this process's half: the training cell from one seed, 1 +
+    ``DET_STEPS`` steps, then each option of ``DET_OPTIONS`` for 1 +
+    ``DET_OPTION_STEPS``. Returns the launches its runs must make, the
+    digests of :func:`det_digests` and each run's losses."""
+    losses = {}
+    ours = det_digests(seed, losses)
+    expect = {k: 0 for k in TRAIN_LAUNCHES}
+    for _, _, warping, n in det_cases():
+        per_step = LINEAR_LAUNCHES if warping == "Linear" else TRAIN_LAUNCHES
+        for k, v in per_step.items():
+            expect[k] += n * v
+    return expect, ours, losses
+
+
+def det_compare(child, ours, losses):
+    """(b), the comparison: the runs of ``child`` (:func:`det_train_child`,
+    started beside this process's) against ``ours``: every step's loss,
+    parameter, Adam moment and the carry bitwise equal across the two
+    processes."""
+    out = finish_child(child, "(b)")
+    line = [ln for ln in out.splitlines() if ln.startswith(DET_DIGESTS)]
+    check(line, "determinism (b): the child printed no digests")
+    theirs = json.loads(line[-1][len(DET_DIGESTS):])
+    for tag, digests in ours.items():
+        differ = sorted(k for k in set(digests) | set(theirs[tag])
+                        if digests.get(k) != theirs[tag].get(k))
+        check(not differ,
+              f"determinism (b) {tag}: two runs differ in {differ[:8]}")
+        print(f"determinism (b) {tag}: two runs, in two processes, of 1 + "
+              f"{len(losses[tag]) - 1} steps bitwise equal in "
+              f"{len(digests)} tensors (losses "
+              f"{[f'{v:.9g}' for v in losses[tag]]})")
+
+
+def detector_child():
+    """(c), in a process of its own: one training step of the default and
+    of the transposed-conv model under ``torch.use_deterministic_algorithms
+    (True)``, which raises at any op on the path that has no deterministic
+    implementation; ``torch.histc`` on the card must raise there (the
+    detector is armed); then one more step with ``F.interpolate``'s
+    backward put back, printed whether it raises or not (torch 2.11 does
+    not flag it, though it adds with atomics: (f) prints two of its calls
+    apart). Run with ``CUBLAS_WORKSPACE_CONFIG`` set."""
+    import torch
+    import torch.nn.functional as F
+
+    from taming_event_flow_tpu_torch.models import blocks
+    from taming_event_flow_tpu_torch.models import model as model_mod
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
+
+    set_tf32(False)
+    set_deterministic()
+    torch.use_deterministic_algorithms(True)
+    kernel_build.load()
+    steps = {}
+    for tag, change in (("default", {}),
+                        ("transposed", {"use_upsample_conv": False})):
+        _, step, state = steps[tag] = build_trainer(
+            TRAIN_B, DEVICE, model_config=dict(MODEL_CONFIG, **change))
+        _, loss = step(state, train_window(np.random.default_rng(0),
+                                           TRAIN_B))
+        check(math.isfinite(float(loss)), f"detector {tag}: loss {loss}")
+        print(f"detector {tag}: one step under deterministic algorithms, "
+              f"loss {float(loss):.9g}", flush=True)
+    # armed: an op without a deterministic implementation raises
+    try:
+        torch.histc(torch.rand(100, device=DEVICE))
+    except RuntimeError as err:
+        check("deterministic" in str(err), f"detector armed: {err}")
+        print(f"detector armed: {str(err).splitlines()[0][:100]}",
+              flush=True)
+    else:
+        check(False, "detector: torch.histc on the card did not raise")
+    # F.interpolate's bilinear backward, which the upsample replaces, in
+    # the default decoders (the coarser scales' upsampled flows get no
+    # gradient with scales_loss 1): printed, whether it raises or not
+    blocks.upsample_bilinear = model_mod.upsample_bilinear = (
+        lambda x, f: F.interpolate(x, scale_factor=f, mode="bilinear",
+                                   align_corners=False))
+    _, step, state = steps["default"]
+    try:
+        step(state, train_window(np.random.default_rng(0), TRAIN_B))
+        print("detector: a step with F.interpolate's backward ran (torch "
+              f"{torch.__version__} does not flag it)", flush=True)
+    except RuntimeError as err:
+        print(f"detector: a step with F.interpolate's backward raised: "
+              f"{str(err).splitlines()[0][:100]}", flush=True)
+    print(DET_MARK, flush=True)
+
+
+def start_child(call, env=None):
+    """``python -c "import chip_smoke; chip_smoke.<call>"`` from this file's
+    directory, its output piped."""
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish_child(proc, tag):
+    """Wait for a child of :func:`start_child` (killed after
+    ``DET_TIMEOUT``); it must exit 0. Returns its output."""
+    try:
+        out, _ = proc.communicate(timeout=DET_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != 0:
+        print(out[-4000:])
+    check(proc.returncode == 0,
+          f"determinism {tag}: the child exited {proc.returncode}")
+    return out
+
+
+def det_cli(seed, work, train_data):
+    """(d): the training CLI at phase 7's values (one rank, one epoch)
+    twice: every step's loss and the epoch loss bitwise equal. Returns the
+    launches it must make (steps x the Iterative loss's per step)."""
+    import train_flow_torch
+
+    data_dir, loader_cls = train_data
+    runs = []
+    for _ in range(2):
+        steps = recording(train_flow_torch.make_train_step)
+        root = tempfile.mkdtemp(prefix="det_cli_", dir=work)
+        parser = train_cli_config(data_dir, seed)
+        parser.config["loader"]["n_epochs"] = 1
+        runid, _, _ = run_train_cli(parser, root, {
+            "H5Loader": loader_cls, "make_train_step": steps})
+        runs.append((steps.steps[0].losses, epoch_losses(root, runid)))
+    as_bits = [[struct.pack("<d", v) for v in r[0] + r[1]] for r in runs]
+    check(as_bits[0] == as_bits[1] and runs[0][0],
+          f"determinism (d): two CLI runs differ: {runs}")
+    print(f"determinism (d) training CLI twice: {len(runs[0][0])} step "
+          f"losses and the epoch loss {runs[0][1]} bitwise equal")
+    return {k: 2 * len(runs[0][0]) * v for k, v in TRAIN_LAUNCHES.items()}
+
+
+def det_eval(rng):
+    """(e): ``EvalPipeline`` on the same 3 DSEC windows twice, unrectified
+    and rectified (the count input derived on the card): FWL, RSAT, AEE and
+    the ``flow_bw`` u16 maps bitwise equal. Returns the launches it must
+    make."""
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    cases = (("unrectified", synthetic_windows(rng, N_WINDOWS), None),
+             ("rectified", rectified_windows(rng, N_WINDOWS, fwd, ridx[0]),
+              ridx))
+    for tag, windows, r in cases:
+        runs = []
+        for _ in range(2):
+            pipe = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+            pipe.cur_ridx = r
+            runs.append(run_windows(pipe, windows)[0])
+        for i, (a, b) in enumerate(zip(*runs)):
+            for k in ("fwl", "rsat", "aee"):
+                check(struct.pack("<d", float(a[k])) == struct.pack(
+                    "<d", float(b[k])), f"determinism (e) {tag} window {i}: "
+                      f"{k} {float(a[k])!r} vs {float(b[k])!r}")
+            check(np.array_equal(a["flow_bw"], b["flow_bw"]),
+                  f"determinism (e) {tag} window {i}: flow_bw differs")
+        print(f"determinism (e) DSEC {tag}: {N_WINDOWS} windows twice, FWL "
+              f"RSAT AEE and flow_bw bitwise equal (FWL "
+              f"{[f'{float(m['fwl']):.9g}' for m in runs[0]]})")
+    n = 2 * N_WINDOWS
+    return {"splat_bilinear": 2 * 2 * n, "gather_bilinear": 2 * PASSES * n,
+            "gather_fused": 0, "row_gather": n}
+
+
+def step_split(averages):
+    """Device ms of a profiled training step: all of it, the convolutions'
+    backward, the upsampling's backward and the splat's kernels (the zero
+    fill of its scratch not included)."""
+    from torch.autograd import DeviceType
+
+    def dev(a):
+        return a.device_time_total
+
+    cpu = [a for a in averages if a.device_type == DeviceType.CPU]
+    kernels = [a for a in averages if a.device_type == DeviceType.CUDA
+               and not a.is_user_annotation]
+    return {
+        "device": sum(a.self_device_time_total for a in kernels) / 1e3,
+        "conv backward": sum(dev(a) for a in cpu
+                             if a.key == "aten::convolution_backward") / 1e3,
+        "upsample backward": sum(
+            dev(a) for a in cpu if a.key in (
+                "UpsampleBilinearFnBackward",
+                "aten::upsample_bilinear2d_backward")) / 1e3,
+        "splat": sum(a.self_device_time_total for a in kernels
+                     if "splat_" in a.key) / 1e3,
+    }
+
+
+def det_cost(shapes, gpu):
+    """(f): the splat's event and device ms at the three shapes, the two
+    upsample backwards at a decoder's shape (each twice: the gather's
+    bitwise), and one profiled training step's device time split into
+    convolution backward, upsample backward and splat, as the port runs it
+    and with two sources of run-to-run change put back
+    (``cudnn.deterministic`` off, ``F.interpolate``'s atomic backward).
+    Printed, with no limit."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from taming_event_flow_tpu_torch.models import blocks
+    from taming_event_flow_tpu_torch.models import model as model_mod
+    from taming_event_flow_tpu_torch.ops import cuda_warp
+
+    for tag, (loc, values, res) in shapes.items():
+        call = lambda: cuda_warp.splat_bilinear(loc, values, res)  # noqa: E731
+        print(f"determinism (f) splat {tag} on {gpu}: event "
+              f"{time_ms(call):.5f} ms, device {device_ms(call):.5f} ms")
+
+    def atomic_upsample(x, factor):
+        return F.interpolate(x, scale_factor=factor, mode="bilinear",
+                             align_corners=False)
+
+    # the two upsample backwards at a decoder's shape, each twice
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    x = torch.randn(TRAIN_B, 128, 32, 32, device=DEVICE, generator=gen,
+                    requires_grad=True)
+    g = torch.randn(TRAIN_B, 128, 64, 64, device=DEVICE, generator=gen)
+    for tag, up in (("F.interpolate's", atomic_upsample),
+                    ("the gather", blocks.upsample_bilinear)):
+        def back():
+            return torch.autograd.grad(up(x, 2), x, g)[0]
+
+        a, b = back(), back()
+        torch.cuda.synchronize()
+        same = torch.equal(bits(a), bits(b))
+        check(same or up is atomic_upsample, "determinism (f): the upsample "
+              "backward differs between two calls")
+        apart = ("bitwise equal" if same else
+                 f"differ by up to {float((a - b).abs().max()):.3e}")
+        print(f"determinism (f) {tag} upsample backward at [8, 128, 32, 32] "
+              f"x 2 on {gpu}: two calls {apart}; forward + backward "
+              f"{device_ms(back):.5f} ms of device time")
+
+    _, step, state = build_trainer(TRAIN_B, DEVICE)
+    window = train_window(np.random.default_rng(14), TRAIN_B)
+    state, _ = step(state, window)
+    flags = torch.backends.cudnn
+    ours = blocks.upsample_bilinear
+    variants = (("the port (deterministic)", True, ours),
+                ("cudnn.deterministic off, F.interpolate's backward", False,
+                 atomic_upsample))
+    split = {}
+    try:
+        for tag, det, up in variants:
+            flags.deterministic = det
+            blocks.upsample_bilinear = model_mod.upsample_bilinear = up
+            state, _ = step(state, window)  # warm: a new algorithm choice
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, window)
+                torch.cuda.synchronize()
+            split[tag] = step_split(prof.key_averages())
+            print(f"determinism (f) one training step on {gpu}, {tag}: "
+                  + ", ".join(f"{k} {v:.3f} ms"
+                              for k, v in split[tag].items()))
+    finally:
+        flags.deterministic = True
+        blocks.upsample_bilinear = model_mod.upsample_bilinear = ours
+    return split
+
+
+def determinism_phase(seed, work, train_data, gpu):
+    """Phase 14: one seed gives one run on the card. (a) The splat twice on
+    identical inputs at the DSEC, training and ``d_maps`` shapes, within
+    its plain version's tolerance and its fixed-point bound; a pile of
+    ``DET_PILE`` points on one pixel ``DET_REPEATS`` times; NaN and +-Inf
+    values. (b) The training cell from one seed, and each option of
+    ``DET_OPTIONS``, here and in a child process: losses, parameters, Adam
+    moments, carry bitwise. (c) One step under
+    ``torch.use_deterministic_algorithms(True)`` in another child. (d)
+    The training CLI twice. (e) The DSEC eval pipeline twice, unrectified
+    and rectified. (f) Costs, printed. The children start first and run
+    beside (a)-(e). Returns this process's launches of (b), (d) and
+    (e)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 14])
+    secs = {}
+
+    def lap(part):
+        secs[part] = time.perf_counter() - t_phase - sum(secs.values())
+
+    # (c) needs CUBLAS_WORKSPACE_CONFIG before CUDA starts
+    detector = start_child("detector_child()",
+                           {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    trainer = start_child(f"det_train_child({seed})")
+    try:
+        shapes = det_splats(rng)
+        lap("(a)")
+        reset_launches()
+        expect, digests, losses = det_training(seed)
+        lap("(b) here")
+        for k, v in det_cli(seed, work, train_data).items():
+            expect[k] += v
+        lap("(d)")
+        for k, v in det_eval(rng).items():
+            expect[k] += v
+        launches = dict(LAUNCHES)
+        check(launches == expect, f"determinism launches {launches}, "
+              f"expected {expect}")
+        lap("(e)")
+        det_compare(trainer, digests, losses)
+        lap("(b) wait")
+    except BaseException:
+        for proc in (detector, trainer):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        raise
+    out = finish_child(detector, "(c)")
+    print("\n".join(f"determinism (c) {line}" for line in
+                    out.strip().splitlines()[-6:]))
+    check(DET_MARK in out, "determinism (c): the detector did not finish")
+    lap("(c) wait")
+    det_cost(shapes, gpu)
+    torch.cuda.empty_cache()
+    lap("(f)")
+    print(f"phase 14 determinism: {time.perf_counter() - t_phase:.1f} s on "
+          f"{gpu} (" + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f"); launches {launches}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4578,7 +5266,11 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from taming_event_flow_tpu_torch.ops import kernel_build, set_tf32
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
 
     t_start = time.perf_counter()
     gpu = gpu_line()
@@ -4586,6 +5278,7 @@ def main(argv=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(json.dumps({"imports": optional_imports()}))
     set_tf32(False)
+    set_deterministic()
     lib = kernel_build.load()
     print(f"built {lib.path} in {lib.build_seconds:.2f} s")
     for name, regs, spill in kernel_build.ptxas_report(lib.build_log):
@@ -4623,6 +5316,7 @@ def main(argv=None):
                                                    gpu)
         trans_launches, trans_ms = transposed_phase(
             args.seed, work, train_data, per_window, gpu, args.profile)
+        det_launches = determinism_phase(args.seed, work, train_data, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4630,7 +5324,8 @@ def main(argv=None):
              "train": train_launches, "train_cli": cli_launches,
              "eval_cli": eval_cli_launches, "registry": registry_launches,
              "parallel": par_launches, "options": option_launches,
-             "jax_run": jax_launches, "transposed": trans_launches}
+             "jax_run": jax_launches, "transposed": trans_launches,
+             "determinism": det_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):

@@ -42,7 +42,11 @@ from taming_event_flow_tpu_torch import tracking
 from taming_event_flow_tpu_torch.configs import YAMLParser
 from taming_event_flow_tpu_torch.data import H5Loader, Prefetcher
 from taming_event_flow_tpu_torch.models import build_model
-from taming_event_flow_tpu_torch.ops import compute_pol_iwe, set_tf32
+from taming_event_flow_tpu_torch.ops import (
+    compute_pol_iwe,
+    set_deterministic,
+    set_tf32,
+)
 from taming_event_flow_tpu_torch.parallel import init_distributed, shared_seed
 from taming_event_flow_tpu_torch.pipeline import (
     EvalPipeline,
@@ -105,6 +109,7 @@ def test(args, config_parser: YAMLParser, device="cuda"):
 
     # float32 throughout unless the config asks for a bf16 forward
     set_tf32(False)
+    set_deterministic()
     model = build_model(dict(config["model"]), num_bins=num_bins, device=dev)
     load_weights(model, args.runid, dev)
 

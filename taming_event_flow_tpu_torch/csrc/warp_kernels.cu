@@ -22,25 +22,57 @@
 //
 // splat_kernel replaces the Pallas `_splat_kernel`
 // (taming_event_flow_tpu/ops/pallas_warp.py:128, call :186). The TPU kernel
-// builds dense [TH, E] x [E, TW] triangle-factor matmuls per image tile so
-// the MXU does the scatter; on Hopper a point touches at most 4 pixels, so
-// one thread per (point, batch) issues at most 4 atomic adds into an NHWC
-// output the wrapper zeroes, one per tap: for C = 4 one 16-byte vector
-// reduction (atomicAdd on a float4, RED.ADD.F32x4 on sm_90), for C = 2 one
-// 8-byte one, for C = 1 and C = 3 C scalar ones. Bound on this card: bytes.
-// Each point reads 8 + 4C bytes and the output is written once (at DSEC,
-// M = 655,360, C = 4: 15.7 MB read, 4.9 MB written, ~6 us at 3.35 TB/s);
-// the atomics land in L2 (the 4.9 MB image fits the 50 MB L2), so the cost
-// is the point stream plus L2 atomic throughput. Integer coordinates (the
-// round_idx splats of RSAT/FWL) issue one tap, not four. Atomics on one
-// address serialise, and the rows that carry zero values all sit at one
-// pixel: the eval window's ~255k padding rows and the events that
-// purge_unfeasible moves to (0, 0). So a tap whose C products w * v_c are
-// all zero issues no atomic, and such a row costs the read of its 8 + 4C
-// bytes and nothing else. That is exact: adding +-0 to a pixel changes at
-// most the sign of a zero pixel, and a product that is NaN is not zero and
-// is added. Atomic order changes the summation order of non-integer sums
-// from run to run; sums of small integers (the count planes) stay exact.
+// builds dense [TH, E] x [E, TW] triangle-factor matmuls per image tile and
+// sums its point chunks in grid order, so a run repeats bit for bit; on
+// Hopper a point touches at most 4 pixels, so one thread per (point, batch)
+// adds its taps into the image with atomics, and float atomics would sum in
+// an order that changes from run to run. So the splat sums in fixed point:
+// integer addition is associative, and the atomics' order changes no bit.
+// One call is four launches on the stream, nothing read back by the host:
+//   1. a zero fill of the scratch: int64 acc [B, H, W, C], a uint32 flag
+//      word per pixel [B, H, W], and per batch lane its max |v| and its
+//      count of rows with a non-zero value;
+//   2. splat_scan_kernel: each lane's max |v| over its finite values (as
+//      float bits through atomicMax, order-free: for non-negative floats
+//      the bit pattern orders as the value) and its non-zero rows n
+//      (atomicAdd of per-block counts);
+//   3. splat_kernel: each tap's product t = w * v_c (w = wy * wx, both
+//      products rounded in float as the plain version rounds them) adds
+//      q = llrint(t * 2^k) to its pixel with a 64-bit integer atomicAdd.
+//      The lane's scale exponent is k = 62 - ceil(log2(4 n)) - e, where
+//      max |v| = f * 2^e (frexp, f in [0.5, 1)): every |q| <= 2^62 / 4n
+//      and a pixel takes at most n non-zero products, so no sum can
+//      overflow int64. k depends on the lane's own values alone, not on
+//      B, M or its zero rows, so a lane splats to the same bits alone, in
+//      a batch or padded (the batched sweep's [T*B] splat and the looped
+//      sweep's agree bitwise);
+//   4. splat_finish_kernel: out = float(acc) * 2^-k, the int64 rounded to
+//      float once and then scaled exactly (a result below float's normal
+//      range rounds a second time, by at most 2^-150).
+// Error bound: each tap's q is within 1/2 of t * 2^k, so a pixel holding m
+// taps of non-zero product is within m * 2^(-k-1) + ulp(out) / 2 of the
+// exact sum of its products t. At DSEC (~400k non-zero rows of 655,360,
+// max |v| <= 10: k = 62 - 21 - 4 = 37) that is m * 3.6e-12, far inside
+// the plain version's own float rounding; a product under 2^(-k-1) adds
+// nothing. A product that is NaN or +-Inf cannot be held in an integer: it
+// sets its bit (NaN, +Inf, -Inf for each channel) in the pixel's flag word
+// with atomicOr, also order-free, and the finish pass writes NaN where
+// float addition would (a NaN, or +Inf and -Inf both), else the infinity.
+// A tap whose product rounds to q = 0 issues no atomic for that channel,
+// so the rows that carry zero values, which all sit at one pixel (the eval
+// window's ~255k padding rows and the events that purge_unfeasible moves to
+// (0, 0)), cost the read of their 8 + 4C bytes and nothing else: adding 0
+// changes no integer, and a zero pixel comes out +0, as the plain version's
+// +0 start makes it. Integer coordinates (the round_idx splats of RSAT/FWL)
+// issue one tap, not four. Sums of small integers (the count planes) come
+// out exact, as before. Bound on this card: bytes. Each point reads 8 + 4C
+// bytes and the output is written once (at DSEC, M = 655,360, C = 4:
+// 15.7 MB read, 4.9 MB written, ~6 us at 3.35 TB/s); beyond that bound the
+// call moves the int64 image three times (zero fill, atomics, finish: ~10
+// MB each at DSEC, L2-resident), reads the values a second time for the
+// scan, and issues C scalar 64-bit atomics a tap where a float kernel
+// would issue one vector reduction: the atomics bind it at the training
+// shapes, where every row carries values.
 //
 // gather_kernel replaces the Pallas `_gather_kernel`
 // (pallas_warp.py:206, call :261). The TPU kernel contracts dense factors
@@ -193,24 +225,80 @@ __device__ __forceinline__ float2 load_loc(const float* loc, int64_t row) {
   }
 }
 
-// px[c] += v[c] as one vector reduction for C = 4 and C = 2 (px aligned to
-// 4C bytes: the entry point checks), C scalar ones otherwise.
+// A lane's scale exponent k (see the header) from its max |v| (as float
+// bits) and its count of non-zero rows n: k = 62 - ceil(log2(4 n)) - e
+// with max |v| = f * 2^e, f in [0.5, 1), so a pixel's sum of n products
+// scaled by 2^k stays within 2^62.
+__device__ __forceinline__ int splat_exponent(const unsigned* lane) {
+  int e;
+  frexpf(__uint_as_float(lane[0]), &e);  // e = 0 for max |v| = 0
+  const unsigned long long n4 = 4ull * max(lane[1], 1u);
+  return 62 - (64 - __clzll(n4 - 1)) - e;
+}
+
+// The flag bit of a non-finite product of channel c: NaN, +Inf, -Inf.
+__device__ __forceinline__ unsigned nonfinite_bit(float t, int c) {
+  const unsigned bit = isnan(t) ? 1u : (t > 0.0f ? 2u : 4u);
+  return bit << (3 * c);
+}
+
+// Per lane (blockIdx.y) of values [B, M, C]: the max |v| over its finite
+// entries, as float bits, into lanes[2 b], and its rows with a finite
+// non-zero value into lanes[2 b + 1] (both zeroed by the caller): a
+// grid-stride loop over the lane's rows, warp and block reductions, then
+// one atomicMax and one atomicAdd a block.
 template <int C>
-__device__ __forceinline__ void add_row(float* px, const float* v) {
-  if constexpr (C == 4) {
-    atomicAdd(reinterpret_cast<float4*>(px), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (C == 2) {
-    atomicAdd(reinterpret_cast<float2*>(px), make_float2(v[0], v[1]));
-  } else {
+__global__ void __launch_bounds__(kThreads)
+splat_scan_kernel(const float* __restrict__ values, int M,
+                  unsigned* __restrict__ lanes) {
+  const float* lane = values + (int64_t)blockIdx.y * M * C;
+  unsigned m = 0, n = 0;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < M;
+       r += gridDim.x * blockDim.x) {
+    bool live = false;
 #pragma unroll
-    for (int c = 0; c < C; ++c) atomicAdd(px + c, v[c]);
+    for (int c = 0; c < C; ++c) {
+      const float a = fabsf(__ldg(lane + (int64_t)r * C + c));
+      if (isfinite(a)) {
+        m = max(m, __float_as_uint(a));
+        live |= a != 0.0f;
+      }
+    }
+    n += live;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    n += __shfl_xor_sync(0xffffffffu, n, off);
+  }
+  __shared__ unsigned warp_m[kThreads / 32], warp_n[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) {
+    warp_m[threadIdx.x >> 5] = m;
+    warp_n[threadIdx.x >> 5] = n;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const bool have = threadIdx.x < kThreads / 32;
+    m = have ? warp_m[threadIdx.x] : 0u;
+    n = have ? warp_n[threadIdx.x] : 0u;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      n += __shfl_xor_sync(0xffffffffu, n, off);
+    }
+    if (threadIdx.x == 0) {
+      if (m != 0) atomicMax(lanes + 2 * blockIdx.y, m);
+      if (n != 0) atomicAdd(lanes + 2 * blockIdx.y + 1, n);
+    }
   }
 }
 
 template <int C, bool V>
 __global__ void __launch_bounds__(kThreads)
 splat_kernel(const float* __restrict__ loc, const float* __restrict__ values,
-             float* __restrict__ out, int M, int H, int W) {
+             unsigned long long* __restrict__ acc,
+             unsigned* __restrict__ flags, const unsigned* __restrict__ lanes,
+             int M, int H, int W) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= M) return;
   const int b = blockIdx.y;
@@ -218,6 +306,7 @@ splat_kernel(const float* __restrict__ loc, const float* __restrict__ values,
   const float2 p = load_loc<V>(loc, row);
   float v[C];
   load_row<C, V>(values + row * C, v);
+  const double scale = ldexp(1.0, splat_exponent(lanes + 2 * b));
 
   const float y0 = floorf(p.x);
   const float x0 = floorf(p.y);
@@ -226,7 +315,7 @@ splat_kernel(const float* __restrict__ loc, const float* __restrict__ values,
   // an exactly-integer coordinate has a single tap of weight 1
   const int ny = fy != 0.0f ? 2 : 1;
   const int nx = fx != 0.0f ? 2 : 1;
-  float* img = out + (int64_t)b * H * W * C;
+  const int64_t plane = (int64_t)b * H * W;
   for (int dy = 0; dy < ny; ++dy) {
     const float ty = y0 + (float)dy;
     if (!(ty >= 0.0f && ty <= (float)(H - 1))) continue;  // also drops NaN
@@ -236,16 +325,52 @@ splat_kernel(const float* __restrict__ loc, const float* __restrict__ values,
       if (!(tx >= 0.0f && tx <= (float)(W - 1))) continue;
       const float wx = dx ? fx : 1.0f - fx;
       const float w = __fmul_rn(wy, wx);
-      float t[C];
-      bool nonzero = false;
+      const int64_t pix = plane + (int64_t)ty * W + (int64_t)tx;
+      unsigned bad = 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        t[c] = __fmul_rn(w, v[c]);
-        nonzero |= t[c] != 0.0f;  // NaN counts as non-zero
+        const float t = __fmul_rn(w, v[c]);
+        if (!isfinite(t)) {
+          bad |= nonfinite_bit(t, c);
+          continue;
+        }
+        // exact in double (a float times a power of two), then rounded to
+        // the nearest integer once; a negative q wraps in two's complement
+        const long long q = __double2ll_rn((double)t * scale);
+        if (q != 0) atomicAdd(acc + pix * C + c, (unsigned long long)q);
       }
-      if (nonzero) add_row<C>(img + ((int64_t)ty * W + (int64_t)tx) * C, t);
+      if (bad) atomicOr(flags + pix, bad);
     }
   }
+}
+
+// out [B, H, W, C] from the fixed-point sums and the flag words: one thread
+// per pixel.
+template <int C, bool V>
+__global__ void __launch_bounds__(kThreads)
+splat_finish_kernel(const long long* __restrict__ acc,
+                    const unsigned* __restrict__ flags,
+                    const unsigned* __restrict__ lanes,
+                    float* __restrict__ out, int64_t pixels, int64_t hw) {
+  const int64_t pix = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= pixels) return;
+  const int k = splat_exponent(lanes + 2 * (pix / hw));
+  const unsigned f = __ldg(flags + pix);
+  float r[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const unsigned bits = (f >> (3 * c)) & 7u;
+    if ((bits & 1u) || bits == 6u) {
+      r[c] = __uint_as_float(0x7fffffffu);  // NaN, or +Inf plus -Inf
+    } else if (bits == 2u) {
+      r[c] = __uint_as_float(0x7f800000u);  // +Inf
+    } else if (bits == 4u) {
+      r[c] = __uint_as_float(0xff800000u);  // -Inf
+    } else {
+      r[c] = scalbnf(__ll2float_rn(__ldg(acc + pix * C + c)), -k);
+    }
+  }
+  store_row<C, V>(out + pix * C, r);
 }
 
 // One point's taps: the tap pixels' values (read only where `use`), the
@@ -545,17 +670,34 @@ bool aligned(const void* p, uintptr_t bytes) {
   return (uintptr_t)p % bytes == 0;
 }
 
-// The vector instance when loc is 8-byte aligned and each row pointer is
-// 4C-byte aligned (C = 2, 4), else the scalar one.
+// The splat's three kernels on the zeroed scratch (see the header): the
+// vector instance of splat_kernel when loc is 8-byte aligned and each value
+// row 4C-byte aligned (C = 2, 4), else the scalar one; out is 4C-byte
+// aligned (the entry point checks).
 template <int C>
 void launch_splat(const float* loc, const float* values, float* out, int B,
-                  int M, int H, int W, cudaStream_t s) {
+                  int M, int H, int W, unsigned long long* acc,
+                  unsigned* flags, unsigned* lanes, cudaStream_t s) {
+  // the scan: a grid-stride loop over each lane's rows, ~8 blocks an SM
+  const int per_lane = B < 8 * 132 ? 8 * 132 / B : 1;
+  const int blocks = (M + kThreads - 1) / kThreads;
+  splat_scan_kernel<C>
+      <<<dim3(blocks < per_lane ? blocks : per_lane, B), kThreads, 0, s>>>(
+          values, M, lanes);
   const dim3 grid((M + kThreads - 1) / kThreads, B);
   if (aligned(loc, 8) && aligned(values, 4 * C)) {
-    splat_kernel<C, true><<<grid, kThreads, 0, s>>>(loc, values, out, M, H, W);
+    splat_kernel<C, true><<<grid, kThreads, 0, s>>>(loc, values, acc, flags,
+                                                    lanes, M, H, W);
   } else {
-    splat_kernel<C, false><<<grid, kThreads, 0, s>>>(loc, values, out, M, H, W);
+    splat_kernel<C, false><<<grid, kThreads, 0, s>>>(loc, values, acc, flags,
+                                                     lanes, M, H, W);
   }
+  const int64_t hw = (int64_t)H * W;
+  const int64_t pixels = B * hw;
+  splat_finish_kernel<C, true>
+      <<<(unsigned)((pixels + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+          reinterpret_cast<const long long*>(acc), flags, lanes, out, pixels,
+          hw);
 }
 
 template <int C>
@@ -620,23 +762,34 @@ void launch_row_gather(const float* table, const int* idx, float* out,
 
 extern "C" {
 
-// Zeroes out [B, H, W, C] on the stream, then splats into it. out must be
-// aligned to 4C bytes for the vector atomics of C = 2 and C = 4
-// (cudaErrorInvalidValue otherwise). Returns the first CUDA error.
+// Splats into out [B, H, W, C] through the fixed-point scratch, which must
+// hold 8BHWC + 4BHW + 8B bytes, 8-byte aligned (the wrapper allocates it;
+// this zeroes it on the stream). out must be aligned to 4C bytes for the
+// vector stores of C = 2 and C = 4 (cudaErrorInvalidValue otherwise).
+// Returns the first CUDA error.
 int tef_splat_bilinear(const float* loc, const float* values, float* out,
-                       int B, int M, int C, int H, int W, void* stream) {
+                       int B, int M, int C, int H, int W, void* scratch,
+                       void* stream) {
   if ((C == 2 || C == 4) && !aligned(out, 4 * C))
     return (int)cudaErrorInvalidValue;
+  if (!aligned(scratch, 8)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t pixels = (int64_t)B * H * W;
+  if (M == 0) {
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)pixels * C,
+                                s);
+  }
+  auto* acc = static_cast<unsigned long long*>(scratch);
+  auto* flags = reinterpret_cast<unsigned*>(acc + pixels * C);
+  unsigned* lanes = flags + pixels;  // [B, 2]: max |v| bits, non-zero rows
   const cudaError_t zeroed = cudaMemsetAsync(
-      out, 0, sizeof(float) * (size_t)B * H * W * C, s);
+      scratch, 0, (size_t)(8 * pixels * C + 4 * pixels + 8 * B), s);
   if (zeroed != cudaSuccess) return (int)zeroed;
-  if (M == 0) return 0;
   switch (C) {
-    case 1: launch_splat<1>(loc, values, out, B, M, H, W, s); break;
-    case 2: launch_splat<2>(loc, values, out, B, M, H, W, s); break;
-    case 3: launch_splat<3>(loc, values, out, B, M, H, W, s); break;
-    case 4: launch_splat<4>(loc, values, out, B, M, H, W, s); break;
+    case 1: launch_splat<1>(loc, values, out, B, M, H, W, acc, flags, lanes, s); break;
+    case 2: launch_splat<2>(loc, values, out, B, M, H, W, acc, flags, lanes, s); break;
+    case 3: launch_splat<3>(loc, values, out, B, M, H, W, acc, flags, lanes, s); break;
+    case 4: launch_splat<4>(loc, values, out, B, M, H, W, acc, flags, lanes, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

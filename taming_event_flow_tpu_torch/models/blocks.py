@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import upsample_bilinear
+
 _ACTIVATIONS = {
     "relu": torch.relu,
     "tanh": torch.tanh,
@@ -238,8 +240,9 @@ class ResidualBlock(nn.Module):
 
 
 class UpsampleConvLayer(ConvLayer):
-    """Bilinear x2 upsample (half-pixel centres, like ``jax.image.resize``)
-    + conv (reference ``submodules.py:230-273``)."""
+    """Bilinear x2 upsample (half-pixel centres, like ``jax.image.resize``;
+    :func:`..ops.resize.upsample_bilinear`, whose backward is
+    deterministic) + conv (reference ``submodules.py:230-273``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, activation: Optional[str] = "relu",
@@ -248,9 +251,7 @@ class UpsampleConvLayer(ConvLayer):
                          activation=activation, norm=norm)
 
     def forward(self, x):
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=False)
-        return super().forward(x)
+        return super().forward(upsample_bilinear(x, 2))
 
 
 class TransposedConvLayer(nn.Module):

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resize import upsample_bilinear
 from ..utils.device import resolve_device
 from .blocks import init_weights, set_compute_dtype
 from .fire import FireFlowNet, RecFireFlowNet
@@ -47,14 +48,21 @@ def unpad(x, pads: Tuple[int, int]):
 
 def _upsampled(preds, num_encoders: int, padded: Tuple[int, int], pads):
     """Each scale's prediction upsampled to the padded input size
-    (``jax.image.resize(method="bilinear")``'s half-pixel centres), scaled
-    by ``2 ** (num_encoders - i - 1)`` and unpadded: ``[S, B, H, W, 2]``."""
+    (``jax.image.resize(method="bilinear")``'s half-pixel centres, by the
+    integer factor between the two sizes; :func:`..ops.resize.
+    upsample_bilinear`, whose backward is deterministic), scaled by ``2 **
+    (num_encoders - i - 1)`` and unpadded: ``[S, B, H, W, 2]``."""
     flows = []
     for i, flow in enumerate(preds):
         scale = 2 ** (num_encoders - i - 1)
-        if flow.shape[2:] != padded:
-            flow = F.interpolate(flow, size=padded, mode="bilinear",
-                                 align_corners=False)
+        size = tuple(flow.shape[2:])
+        if size != tuple(padded):
+            factor = padded[0] // size[0]
+            if tuple(padded) != (factor * size[0], factor * size[1]):
+                raise ValueError(f"the padded size {tuple(padded)} is not an "
+                                 f"integer multiple of the prediction's "
+                                 f"{size}")
+            flow = upsample_bilinear(flow, factor)
         flows.append(unpad((scale * flow).permute(0, 2, 3, 1), pads))
     return torch.stack(flows, dim=0)
 

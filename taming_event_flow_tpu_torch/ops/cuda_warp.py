@@ -25,6 +25,7 @@ and writes the location gradient as one ``[B, M, 2]`` array.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -248,10 +249,29 @@ def _channels(kernel, c):
         raise ValueError(f"the {kernel} kernel takes 1..4 channels, got {c}")
 
 
+def splat_scale_exponent(values):
+    """Per batch lane of ``values [B, M, C]``, the exponent ``k`` the splat
+    kernel scales the lane's products by before it sums them as int64:
+    ``k = 62 - ceil(log2(4 n)) - e``, ``n`` the lane's rows with a finite
+    non-zero value (at least 1) and ``max |v| = f * 2^e``, ``f`` in ``[0.5,
+    1)``, over its finite values (``e = 0`` for none). The kernel computes
+    it on the card; this is for checks of its error bound, a pixel of ``m``
+    non-zero products within ``m * 2^(-k-1)`` of their exact sum before the
+    one rounding to float. Returns a list of ``B`` ints."""
+    mag = values.detach().abs()
+    mag = torch.where(torch.isfinite(mag), mag, 0.0).reshape(
+        values.shape[0], values.shape[1], -1)
+    top = mag.amax(dim=(1, 2)).tolist() if mag.numel() else [0.0] * len(mag)
+    rows = (mag != 0).any(-1).sum(-1).tolist()
+    return [62 - (4 * max(n, 1) - 1).bit_length() - math.frexp(t)[1]
+            for t, n in zip(top, rows)]
+
+
 def splat_bilinear(loc, values, res: Tuple[int, int]):
     """Bilinear splat (see :func:`splat_bilinear_plain`): the CUDA kernel
     for CUDA tensors, the plain version for CPU tensors. ``C <= 4`` on the
-    card."""
+    card, where the sum is taken in fixed point (``csrc/warp_kernels.cu``),
+    so that a call repeats bit for bit."""
     _check("loc", loc, 3, 2)
     _check("values", values, 3)
     b, m, c = values.shape
@@ -264,9 +284,15 @@ def splat_bilinear(loc, values, res: Tuple[int, int]):
     out = torch.empty(b, h, w, c, dtype=torch.float32, device=values.device)
     if b * m == 0:
         return out.zero_()
-    # the entry point zeroes out before the kernel adds into it
+    # the int64 sums [B, H, W, C], a flag word a pixel and two words a lane
+    # (max |v|, non-zero rows), which the entry point zeroes before the
+    # kernels add into them
+    pixels = b * h * w
+    scratch = torch.empty(pixels * c + (pixels + 1) // 2 + b,
+                          dtype=torch.int64, device=values.device)
     _launch(_library().tef_splat_bilinear, "splat_bilinear", values.device,
-            loc.data_ptr(), values.data_ptr(), out.data_ptr(), b, m, c, h, w)
+            loc.data_ptr(), values.data_ptr(), out.data_ptr(), b, m, c, h, w,
+            scratch.data_ptr())
     return out
 
 

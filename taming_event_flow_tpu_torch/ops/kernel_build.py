@@ -58,10 +58,11 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("tef_splat_bilinear", "tef_gather_bilinear"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        fn.restype = i32
+    lib.tef_splat_bilinear.argtypes = [ptr, ptr, ptr] + [i32] * 5 + [
+        ptr, ptr]
+    lib.tef_splat_bilinear.restype = i32
+    lib.tef_gather_bilinear.argtypes = [ptr, ptr, ptr] + [i32] * 5 + [ptr]
+    lib.tef_gather_bilinear.restype = i32
     lib.tef_gather_fused.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.tef_gather_fused.restype = i32
     lib.tef_row_gather.argtypes = [ptr, ptr, ptr, ctypes.c_int64, i32, i32,

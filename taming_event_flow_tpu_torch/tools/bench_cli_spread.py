@@ -8,10 +8,12 @@ Run from the repo root (it reuses ``chip_smoke.py``'s data and configs:
 ``configs/train_flow.yml``'s values, full width, 128x128, P = 10, one
 epoch over two synthetic sequences). Prints one line per run and the
 epoch losses' largest relative gap among the one-rank runs and between the
-two-rank runs and the first one-rank run. The splat's atomics reorder float
-sums, so two runs on the card are not bitwise equal, and the loss's
-gradient jumps in the flows: the spread says how far apart two correct
-runs may land.
+two-rank runs and the first one-rank run. A one-rank run repeats bit for bit
+(the splat sums in fixed point, the upsample's backward is a gather, cuDNN
+keeps to its deterministic algorithms), so the one-rank gap prints 0. Two
+ranks shard the splat and loss sums or the gradient sum, which reorders
+float sums, and the loss's gradient jumps in the flows: the two-rank gap
+says how far apart two correct runs may land.
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import tempfile
 def _two_ranks(rank, world, url, seed, work, tag):
     import chip_smoke
     import train_flow_torch
-    from taming_event_flow_tpu_torch.ops import kernel_build, set_tf32
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
     from taming_event_flow_tpu_torch.parallel import init_distributed
 
     init_distributed({"coordinator": url, "num_processes": world,
                       "process_id": rank}, backend="gloo", device="cuda:0")
     set_tf32(False)
+    set_deterministic()
     kernel_build.load()
     data_dir, loader_cls, _ = chip_smoke.cli_train_data(work, seed,
                                                         write=False)
@@ -56,11 +63,16 @@ def main(argv=None):
     sys.path.insert(0, os.getcwd())
     import chip_smoke
     import train_flow_torch
-    from taming_event_flow_tpu_torch.ops import kernel_build, set_tf32
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
     from taming_event_flow_tpu_torch.parallel.spawn import run_ranks
 
     print(chip_smoke.gpu_line())
     set_tf32(False)
+    set_deterministic()
     kernel_build.load()
     build = os.path.join(os.getcwd(), "build")
     os.makedirs(build, exist_ok=True)

@@ -25,7 +25,11 @@ def main():
     import torch
 
     import chip_smoke
-    from taming_event_flow_tpu_torch.ops import kernel_build, set_tf32
+    from taming_event_flow_tpu_torch.ops import (
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
     from taming_event_flow_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -35,6 +39,7 @@ def main():
           f"{n_cards} cards")
     chip_smoke.check(n_cards >= 2, "NCCL over one card a rank needs two")
     set_tf32(False)
+    set_deterministic()
     kernel_build.load()
     build = os.path.join(os.getcwd(), "build")
     os.makedirs(build, exist_ok=True)

@@ -49,7 +49,7 @@ from taming_event_flow_tpu_torch.models import (
     optax_state_to_torch,
 )
 from taming_event_flow_tpu_torch.objectives import LossConfig
-from taming_event_flow_tpu_torch.ops import set_tf32
+from taming_event_flow_tpu_torch.ops import set_deterministic, set_tf32
 from taming_event_flow_tpu_torch.parallel import (
     exchange_flags,
     init_distributed,
@@ -179,6 +179,7 @@ def train(args, config_parser: YAMLParser, device="cuda"):
 
     # float32 throughout, as the JAX CLI's parity runs: no TF32
     set_tf32(False)
+    set_deterministic()
     model = build_model(dict(config["model"]), num_bins=num_bins,
                         device=dev, seed=config["loader"].get("seed") or 0)
     loss_cfg = LossConfig(
