@@ -225,8 +225,19 @@ one NVIDIA card.
    upsample backwards twice at a decoder's shape, and one profiled
    training step's device time split into convolution backward, upsample
    backward and splat, as the port runs it and with ``cudnn.deterministic``
-   off and ``F.interpolate``'s atomic backward.
-15. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+   off and ``F.interpolate``'s atomic backward. (g) The default and
+   transposed-decoder training cells of (b) twice more, in a child
+   process once no other uses the card: on the free card (bitwise (b)'s
+   run), then beside a filler tensor that leaves free only what that run
+   grew the child's allocator pool by plus 256 MiB: every bit of losses,
+   parameters, Adam moments and carry equal, both digests printed.
+15. Bench phase: ``python3 bench_torch.py`` (the port of ``bench.py``) in a
+   child process at ``bench.py``'s sizes: both gates ``ok``, every time
+   finite and positive, ``mfu`` and ``bandwidth_util`` in (0, 1.05], the
+   headline equal to the printed ``warps_per_step`` over
+   ``train_step_ms``, this card's peaks, each section's launches exact;
+   its JSON line printed.
+16. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -4392,7 +4403,7 @@ def jax_run_phase(seed, work, train_data, eval_launches, gpu):
 # use_upsample_conv: false, the JAX package's transposed-conv decoders
 TRANSPOSED_CONFIG = dict(MODEL_CONFIG, use_upsample_conv=False)
 MODEL_KINDS = {"default": MODEL_CONFIG, "transposed": TRANSPOSED_CONFIG}
-DECODER_REPS = 3  # profiled replays of a window's or a step's 40 calls
+DECODER_REPS = 1  # profiled replays of a window's or a step's 40 calls
 
 
 def decoder_calls(model, run):
@@ -4614,6 +4625,9 @@ DET_OPTIONS = {
     "Linear": ({}, "Linear"),
 }
 DET_TIMEOUT = 600.0  # seconds the detector's child process may take
+DET_FREE_TAGS = ("default", "transposed")  # (g)'s cells
+# (g): what the filler leaves free beyond the cell's pool growth
+DET_HEADROOM = 1 << 28
 DET_MARK = "determinism detector: ran to its end"
 
 
@@ -4871,15 +4885,23 @@ def det_cases():
         for tag, (change, warping) in DET_OPTIONS.items()]
 
 
-def det_digests(seed, run_log=None):
-    """One seeded run of each of (b)'s configurations: per configuration,
-    each tensor's dtype, shape and SHA-256 of its bytes. ``run_log`` gets
-    each run's losses."""
+def det_digests(seed, run_log=None, tags=None, grown=None):
+    """One seeded run of each of (b)'s configurations (those of ``tags``
+    only, when given): per configuration, each tensor's dtype, shape and
+    SHA-256 of its bytes. ``run_log`` gets each run's losses, ``grown``
+    the bytes each run grew the allocator's pool by."""
     import torch
 
     out = {}
     for i, (tag, change, warping, n) in enumerate(det_cases()):
+        if tags is not None and tag not in tags:
+            continue
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
         run = det_train_run(change, warping, n, seed * 100 + i)
+        if grown is not None:
+            grown[tag] = torch.cuda.max_memory_reserved() - base
         out[tag] = {k: f"{v.dtype} {list(v.shape)} " + hashlib.sha256(
             v.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
             .numpy().tobytes()).hexdigest() for k, v in run.items()}
@@ -5088,6 +5110,88 @@ def det_eval(rng):
             "gather_fused": 0, "row_gather": n}
 
 
+def digest_of(digests):
+    """One SHA-256 over a configuration's tensor digests."""
+    return hashlib.sha256(json.dumps(digests, sort_keys=True)
+                          .encode()).hexdigest()
+
+
+DET_FREE = "determinism free memory: "
+
+
+def det_free_child(seed):
+    """(g), in a process of its own, so that its allocator's pool starts
+    empty and a run grows it by what the run needs: (b)'s default and
+    transposed-decoder cells on the free card, then each beside a filler
+    tensor that holds all of the card's free memory but that growth plus
+    ``DET_HEADROOM``. Prints one JSON line: per cell both runs' digests
+    and losses, the memory left free, the growth, and the launches."""
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        kernel_build,
+        set_deterministic,
+        set_tf32,
+    )
+
+    set_tf32(False)
+    set_deterministic()
+    kernel_build.load()
+    out = {}
+    for tag in DET_FREE_TAGS:
+        grown, losses, held_losses = {}, {}, {}
+        free_run = det_digests(seed, losses, (tag,), grown)[tag]
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        filler = torch.empty(max(free - grown[tag] - DET_HEADROOM, 0),
+                             dtype=torch.uint8, device=DEVICE)
+        try:
+            left = torch.cuda.mem_get_info()[0]
+            held = det_digests(seed, held_losses, (tag,))[tag]
+        finally:
+            del filler
+            torch.cuda.empty_cache()
+        out[tag] = {"free": free_run, "held": held, "losses": losses[tag],
+                    "held_losses": held_losses[tag], "left": left,
+                    "total": total, "grown": grown[tag]}
+    out["launches"] = dict(LAUNCHES)
+    print(DET_FREE + json.dumps(out), flush=True)
+
+
+def det_free_memory(seed, gpu, ref):
+    """(g): :func:`det_free_child` in a child process, once no other
+    process uses the card. Each cell's run on the free card must be
+    bitwise (b)'s (``ref``), and its run beside the filler bitwise that:
+    losses, parameters, Adam moments and carry. Prints both digests."""
+    out = finish_child(start_child(f"det_free_child({seed})"), "(g)")
+    line = [ln for ln in out.splitlines() if ln.startswith(DET_FREE)]
+    check(line, "determinism (g): the child printed no digests")
+    runs = json.loads(line[-1][len(DET_FREE):])
+    expect = {k: 0 for k in TRAIN_LAUNCHES}
+    for tag, _, _, n in det_cases():
+        if tag in DET_FREE_TAGS:
+            for k, v in TRAIN_LAUNCHES.items():
+                expect[k] += 2 * n * v
+    check(runs["launches"] == expect, f"determinism (g) launches "
+          f"{runs['launches']}, expected {expect}")
+    for tag in DET_FREE_TAGS:
+        r = runs[tag]
+        print(f"determinism (g) {tag} on {gpu}: free card "
+              f"{digest_of(r['free'])} (losses "
+              f"{[f'{v:.9g}' for v in r['losses']]}); beside a filler, "
+              f"{r['left'] / 2**30:.3f} of {r['total'] / 2**30:.3f} GiB left "
+              f"free (the run grew its pool {r['grown'] / 2**30:.3f} GiB), "
+              f"{digest_of(r['held'])} (losses "
+              f"{[f'{v:.9g}' for v in r['held_losses']]})")
+        check(r["free"] == ref[tag], f"determinism (g) {tag}: the free "
+              f"card's run differs from (b)'s")
+        differ = sorted(k for k in r["free"]
+                        if r["free"][k] != r["held"].get(k))
+        check(not differ, f"determinism (g) {tag}: "
+              f"{r['left'] / 2**30:.3f} GiB free changes {differ[:8]}")
+
+
 def step_split(averages):
     """Device ms of a profiled training step: all of it, the convolutions'
     backward, the upsampling's backward and the splat's kernels (the zero
@@ -5198,9 +5302,11 @@ def determinism_phase(seed, work, train_data, gpu):
     moments, carry bitwise. (c) One step under
     ``torch.use_deterministic_algorithms(True)`` in another child. (d)
     The training CLI twice. (e) The DSEC eval pipeline twice, unrectified
-    and rectified. (f) Costs, printed. The children start first and run
-    beside (a)-(e). Returns this process's launches of (b), (d) and
-    (e)."""
+    and rectified. (g) The default and transposed cells of (b) on the
+    free card and beside a filler tensor, in a third child once the others
+    have ended (:func:`det_free_memory`). (f) Costs, printed. The first
+    two children start first and run beside (a)-(e). Returns this
+    process's launches of (b), (d) and (e)."""
     import torch
 
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
@@ -5244,6 +5350,8 @@ def determinism_phase(seed, work, train_data, gpu):
                     out.strip().splitlines()[-6:]))
     check(DET_MARK in out, "determinism (c): the detector did not finish")
     lap("(c) wait")
+    det_free_memory(seed, gpu, digests)
+    lap("(g)")
     det_cost(shapes, gpu)
     torch.cuda.empty_cache()
     lap("(f)")
@@ -5251,6 +5359,93 @@ def determinism_phase(seed, work, train_data, gpu):
           f"{gpu} (" + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + f"); launches {launches}")
     return launches
+
+
+# ----------------------------------------------------- bench phase (15)
+
+BENCH_TIMEOUT = 600.0  # seconds bench_torch.py's child process may take
+BENCH_SHARE_MAX = 1.05  # mfu and bandwidth_util: a share of a peak
+
+
+def bench_expected_launches():
+    """The launches ``bench_torch.main`` makes on the card, by section:
+    the eval protocols' windows (one warm-up, then its timing loops) at 10
+    gathers (DSEC, one a pass) or 2 (MVSEC: the pass and its backward
+    re-warp) a window and 2 splats a window with the boundary metrics;
+    the training steps (the counted one, the warm-up and the timed ones)
+    at the training cell's launches a step."""
+    import bench_torch as bt
+
+    def windows(passes):
+        return 1 + bt.TIMING_LOOPS * max(1, bt.EVAL_ITERS // passes)
+
+    def eval_launches(splats, gathers):
+        return {"splat_bilinear": splats, "gather_bilinear": gathers,
+                "gather_fused": 0, "row_gather": 0}
+
+    train = {k: (2 + bt.TRAIN_ITERS) * v for k, v in TRAIN_LAUNCHES.items()}
+    return {
+        "dsec_480x640_inference": eval_launches(0, PASSES * windows(PASSES)),
+        "dsec_480x640_protocol": eval_launches(2 * windows(PASSES),
+                                               PASSES * windows(PASSES)),
+        "mvsec_260x346_eval": eval_launches(0, 2 * windows(1)),
+        "train_b8": train, "train_b1": train,
+    }
+
+
+def bench_phase(gpu):
+    """Phase 15: ``python3 bench_torch.py`` in a child process on the card,
+    at ``bench.py``'s sizes and iterations: both gates ``ok``, every time
+    finite and positive, ``0 < mfu, bandwidth_util <= BENCH_SHARE_MAX``,
+    the headline equal to ``warps_per_step / train_step_ms`` as printed,
+    the peaks of this card and the launches of each section exact.
+    Prints the bench's line; returns its launches summed over sections."""
+    import torch
+
+    import bench_torch as bt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "bench_torch.py"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:])
+    check(proc.returncode == 0, f"bench (15): bench_torch.py exited "
+          f"{proc.returncode}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"bench (15) bench_torch.py on {gpu}: {line}")
+    out = json.loads(line)
+    d = out["detail"]
+    check(d["kernel_correctness"] == "ok" and d["sharded_check"] == "ok"
+          and d["regression_guard"]["ok"] is True,
+          f"bench (15) gates: {d['kernel_correctness']}, "
+          f"{d['sharded_check']}")
+    times = [d["train_step_ms"], d["train_b1"]["train_step_ms"]] + [
+        d[k][t] for k in ("dsec_480x640_inference", "dsec_480x640_protocol",
+                          "mvsec_260x346_eval")
+        for t in ("pass_ms", "window_ms") if t in d[k]]
+    check(all(math.isfinite(t) and t > 0 for t in times),
+          f"bench (15) times {times}")
+    for k in ("mfu", "bandwidth_util"):
+        check(0 < d[k] <= BENCH_SHARE_MAX, f"bench (15) {k} {d[k]}")
+    want = d["warps_per_step"] / (d["train_step_ms"] * 1e-3) / 1e6
+    check(abs(out["value"] - want) <= 1e-3 * want,
+          f"bench (15) headline {out['value']}, warps over ms {want}")
+    check(d["hw_peaks"] == bt.card_peaks(torch.cuda.get_device_name(0))
+          and d["device"] == gpu, f"bench (15) card {d['device']}, peaks "
+          f"{d['hw_peaks']}")
+    expect = bench_expected_launches()
+    check(d["kernel_launches"] == expect, f"bench (15) launches "
+          f"{d['kernel_launches']}, expected {expect}")
+    total = {k: sum(v[k] for v in d["kernel_launches"].values())
+             for k in TRAIN_LAUNCHES}
+    print(f"phase 15 bench: {time.perf_counter() - t_phase:.1f} s on {gpu}; "
+          f"{out['value']} Mevents/s at {d['train_step_ms']} ms/step, mfu "
+          f"{d['mfu']}, bandwidth_util {d['bandwidth_util']}; launches "
+          f"{total}")
+    return total, out
 
 
 def main(argv=None):
@@ -5317,6 +5512,7 @@ def main(argv=None):
         trans_launches, trans_ms = transposed_phase(
             args.seed, work, train_data, per_window, gpu, args.profile)
         det_launches = determinism_phase(args.seed, work, train_data, gpu)
+        bench_launches, bench = bench_phase(gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5325,7 +5521,7 @@ def main(argv=None):
              "eval_cli": eval_cli_launches, "registry": registry_launches,
              "parallel": par_launches, "options": option_launches,
              "jax_run": jax_launches, "transposed": trans_launches,
-             "determinism": det_launches}
+             "determinism": det_launches, "bench": bench_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -5367,6 +5563,11 @@ def main(argv=None):
     print("stream_ms_per_pass (480x640, the JAX run): " + ", ".join(
         f"{w} p50 {p50:.3f} p99 {p99:.3f}"
         for w, (p50, p99) in stream_times.items()))
+    print(f"bench_torch {bench['value']} Mevents/s (B=8, "
+          f"{bench['detail']['train_step_ms']} ms/step, mfu "
+          f"{bench['detail']['mfu']}); B=1 "
+          f"{bench['detail']['train_b1']['train_step_ms']} ms/step; DSEC "
+          f"{bench['detail']['dsec_480x640_inference']['pass_ms']} ms/pass")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

@@ -49,7 +49,7 @@ DEFAULTS: Dict[str, Any] = {
     "model": {},
     "parallel": {
         # device-mesh shape for training (data-parallel lanes x event-axis
-        # shards); the port trains on one device and refuses more
+        # shards): one rank a device under torchrun (parallel/)
         "data": None,
         "event": 1,
     },

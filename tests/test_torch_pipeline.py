@@ -312,6 +312,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
     yield os.path.join(REPO, "train_flow_torch.py")
     yield os.path.join(REPO, "eval_flow_torch.py")
     yield os.path.join(REPO, "examples", "streaming_inference_torch.py")
@@ -336,9 +337,9 @@ def _imports(tree):
 
 
 def test_port_imports_nothing_of_jax():
-    """No port file (the package, ``chip_smoke.py``, ``train_flow_torch.py``,
-    ``eval_flow_torch.py``, the streaming example and the import script)
-    imports JAX, the JAX package or ``msgpack`` anywhere, nor h5py, PyYAML
+    """No port file (the package, ``chip_smoke.py``, ``bench_torch.py``,
+    ``train_flow_torch.py``, ``eval_flow_torch.py``, the streaming example
+    and the import script) imports JAX, the JAX package or ``msgpack`` anywhere, nor h5py, PyYAML
     or cv2 at import time."""
     files = list(_port_files())
     assert len(files) > 25
@@ -363,7 +364,7 @@ def test_port_imports_nothing_of_jax():
 
 def _port_modules():
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch")
-    out = ["train_flow_torch", "eval_flow_torch", "chip_smoke",
+    out = ["train_flow_torch", "eval_flow_torch", "chip_smoke", "bench_torch",
            "examples.streaming_inference_torch",
            "scripts.import_torch_checkpoint_torch"]
     for root, _, files in os.walk(pkg):
