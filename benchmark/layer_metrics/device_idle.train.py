@@ -1,0 +1,10 @@
+"""``device_idle.train``: the share of a traced stretch of training steps
+in which no operation ran on the device, 1 - busy / stretch, in
+percent."""
+
+
+def read(ctx):
+    tr = ctx.get("trace") if ctx.get("kind") == "train" else None
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
