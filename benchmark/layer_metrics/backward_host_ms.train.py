@@ -1,0 +1,13 @@
+"""``backward_host_ms.train``: the host's milliseconds a training step inside
+the program's span ``train.backward`` (``training/step.py:
+make_train_step``: ``loss.backward()``: the host waits there while the
+autograd engine dispatches), the mean over a traced stretch's steps
+(``harness/program_spans.py``)."""
+
+from harness import program_spans
+
+
+def read(ctx):
+    if ctx.get("kind") != "train":
+        return None
+    return program_spans.span_ms(ctx, ["train.backward"])

@@ -2940,7 +2940,7 @@ PAR_LOSS_RTOL = 1e-5  # the CLI's first steps' losses, 2 ranks against 1
 # float sums take another order; the loss's gradient jumps in the flows and
 # Adam's first updates are sign-like, so that reordering grows over the
 # steps: two-rank runs lay within 2.41e-3 of a one-rank run over 4 steps
-# (tools/bench_cli_spread.py; PERF.md, Findings)
+# (PERF.md, Findings)
 PAR_EPOCH_RTOL = 1e-2
 STEEP_G = 1e-7  # |g| under 10 x Adam's eps: the first update is steep in g
 # each kernel's rows among its launch's arguments: (index of B or None, of M)

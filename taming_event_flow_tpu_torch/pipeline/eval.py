@@ -38,6 +38,12 @@ construction:
 
 The JAX pipeline's producer staging of windows is left out: ported and
 measured on the card, it gained nothing (ROADMAP.md).
+
+While a ``torch.profiler`` profile is active, every ``SectionTimer``
+section is a span of the GT window it serves (its rid is
+:attr:`EvalPipeline.window_id`), and the pipeline counts ``h2d_bytes`` (each
+host array it uploads), ``slots`` (the event rows a pass or window stages)
+and ``events`` (those with a nonzero polarity; padding rows carry zero).
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ from ..tracking.loggers import initialize_quant_results
 from ..training import make_eval_step, make_eval_window_step
 from ..training.window import pad_batch_events
 from ..utils.device import resolve_device
-from ..utils.diagnostics import SectionTimer
+from ..utils.diagnostics import SectionTimer, count, tracing
 from ..utils.visualization import flow_to_u16, u16_to_flow
 
 
@@ -260,6 +266,7 @@ class EvalPipeline:
         self.vstate_stale = False  # last window's state awaits its reset
         self.window_mets = None  # in-step metrics of the last window
         self.wbuf = []  # buffered batches of the in-flight window
+        self.window_id = 0  # GT windows closed: the rid of the sections
         self.tm = SectionTimer()
 
     # --------------------------------------------------------- programs
@@ -380,7 +387,16 @@ class EvalPipeline:
     # -------------------------------------------------------- dispatch
 
     def _dev(self, a):
+        count("h2d_bytes", a.nbytes)
         return torch.as_tensor(a, device=self.device)
+
+    def _count_events(self, bufs):
+        """The ``slots`` and ``events`` counters of the staged batches."""
+        if tracing():
+            evs = [b["event_list"] for b in bufs]
+            count("slots", sum(e.shape[0] * e.shape[1] for e in evs))
+            count("events", sum(int(np.count_nonzero(e[..., 3]))
+                                for e in evs))
 
     def _derive_on_device(self, batch) -> bool:
         """Packed count mode: the net input and the event mask derive from
@@ -427,6 +443,7 @@ class EvalPipeline:
         if self.vstate_stale:
             self.vstate = self.criteria.reset(self.vstate)
             self.vstate_stale = False
+        self._count_events([b])
         ev = self._dev(b["event_list"])
         x = emask = raw = pol = None
         if self._derive_on_device(b):
@@ -441,9 +458,11 @@ class EvalPipeline:
                 and self.in_eval_time(meta["ts"]))
         aux = (self._dev(b["gtflow"]) if (want and self.aee_in_program)
                else None)
-        out = self._eval_step(self.vstate, self.carry, x, ev, pol, emask,
-                              n_active=self.passes_done + 1, aux=aux,
-                              with_extras=want, raw=raw, ridx=self.cur_ridx)
+        with self.tm("pass_call", rid=self.window_id):
+            out = self._eval_step(self.vstate, self.carry, x, ev, pol, emask,
+                                  n_active=self.passes_done + 1, aux=aux,
+                                  with_extras=want, raw=raw,
+                                  ridx=self.cur_ridx)
         if want:
             self.vstate, self.carry, flow_fine, self.window_mets = out
         else:
@@ -459,6 +478,7 @@ class EvalPipeline:
         raw coordinates when its input derives from the float32 event
         list. The polarity masks ship only on the plain wire
         (:meth:`stage_pols`)."""
+        self._count_events(bufs)
         aux = (self._dev(bufs[-1]["gtflow"])
                if (self.use_extras and self.aee_in_program) else None)
 
@@ -562,10 +582,10 @@ class EvalPipeline:
         if self.windowed and self.passes_done == 0:
             self.wbuf.append(batch)
             if len(self.wbuf) == self.passes:
-                with self.tm("window_dispatch"):
+                with self.tm("window_dispatch", rid=self.window_id):
                     return self.run_window()
             return None
-        with self.tm("pass_dispatch"):
+        with self.tm("pass_dispatch", rid=self.window_id):
             return self.run_pass(batch, meta)
 
     # ------------------------------------------------- boundary metrics
@@ -581,7 +601,8 @@ class EvalPipeline:
                 dev_mets = dict(self.window_mets)
             else:
                 # eval_time-gated protocols: the metrics outside a step
-                with self.tm("mets_dispatch"), torch.inference_mode():
+                with self.tm("mets_dispatch", rid=self.window_id), \
+                        torch.inference_mode():
                     gt = (self._dev(batch["gtflow"])
                           if "gtflow" in batch else None)
                     dev_mets = self.window_metrics(self.vstate, gt)
@@ -591,18 +612,20 @@ class EvalPipeline:
         else:
             self.vstate = self.criteria.reset(self.vstate)
         self.passes_done = 0
+        self.window_id += 1
         flow_bw = dev_mets.pop("flow_bw", None) if dev_mets else None
         return dev_mets, flow_bw
 
     def boundary_metrics(self, batch, meta) -> Optional[Dict]:
         """Synchronous :meth:`boundary_outputs`: one host readback of the
         window's metrics (with ``flow_bw`` when the vis path wants it)."""
+        rid = self.window_id
         dev_mets, flow_bw = self.boundary_outputs(batch, meta)
         if dev_mets is None:
             return None
         if flow_bw is not None:
             dev_mets["flow_bw"] = flow_bw
-        with self.tm("mets_readback"):
+        with self.tm("mets_readback", rid=rid):
             return _to_host(dev_mets)
 
     # ----------------------------------------------------- vis readouts

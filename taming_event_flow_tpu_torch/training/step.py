@@ -38,6 +38,7 @@ import torch
 from ..objectives import LOSS_REGISTRY, LossConfig
 from ..ops.encodings import derive_count_input, unpack_event_wire
 from ..utils.device import resolve_device
+from ..utils.diagnostics import annotate
 
 
 class TrainState(NamedTuple):
@@ -176,23 +177,35 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
       * ``grad_mask``: ``[P, B, N, 1]``
 
     The step updates the model's parameters and the optimizer's state in
-    place; ``loss`` is a detached scalar tensor (reading it syncs).
+    place; ``loss`` is a detached scalar tensor (reading it syncs). While
+    a profile is active it records the span ``train.step`` (rid: the
+    state's step count) with the children ``train.forward`` (unpack and
+    the P passes), ``train.loss``, ``train.backward`` and
+    ``train.optimizer`` (the clip and the update).
     """
     loss_fn = LOSS_REGISTRY[warping]
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(state: TrainState, raw_window: Dict[str, torch.Tensor]):
-        window = unpack_window(raw_window, res=res)
-        for p in params:
-            p.grad = None
-        with torch.enable_grad():
-            flows, carry = run_passes(model, state.carry,
-                                      window["net_input"], flow_scaling)
-            loss = loss_fn(flows, window["event_list"], window["pol_mask"],
-                           window["grad_mask"], loss_cfg)
-            loss.backward()
-        optimizer.step()
-        carry = tuple(c.detach() for c in carry)
+        with annotate("train.step", rid=state.step):
+            with annotate("train.forward"):
+                window = unpack_window(raw_window, res=res)
+                for p in params:
+                    p.grad = None
+                with torch.enable_grad():
+                    flows, carry = run_passes(model, state.carry,
+                                              window["net_input"],
+                                              flow_scaling)
+            with torch.enable_grad():
+                with annotate("train.loss"):
+                    loss = loss_fn(flows, window["event_list"],
+                                   window["pol_mask"], window["grad_mask"],
+                                   loss_cfg)
+                with annotate("train.backward"):
+                    loss.backward()
+            with annotate("train.optimizer"):
+                optimizer.step()
+            carry = tuple(c.detach() for c in carry)
         return TrainState(carry, state.step + 1), loss.detach()
 
     return step
