@@ -53,7 +53,8 @@ one NVIDIA card.
 6. Training phase: the training configuration (``configs/train_flow.yml``
    at the batch ``bench.py`` measures: 128x128, P=10, B=8, 8,192 events per
    pass and lane, Iterative loss, Adam after clip 100) through
-   ``make_train_step`` for one warm-up and five timed steps; losses must be
+   ``make_train_step`` for one warm-up and five steps (the first captures
+   the step's CUDA graph, the rest are timed); losses must be
    finite and change, every parameter must get a finite non-zero gradient,
    and the launch counters must show 124 splats, 80 gathers and 116 fused
    gathers per step. One more step counts the fused gathers' zero-valued
@@ -237,7 +238,19 @@ one NVIDIA card.
    headline equal to the printed ``warps_per_step`` over
    ``train_step_ms``, this card's peaks, each section's launches exact;
    its JSON line printed.
-16. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+16. Graph phase: the training step as the port runs it on the card (a
+   CUDA graph of the unpack, the passes, the loss and the backward from a
+   window shape's second step on), against the same steps run eagerly,
+   for the Iterative and the Linear loss: ten steps of the training
+   window's shape, then three rounds of three shapes in turn (half and a
+   quarter of its events, each captured once, and the first); every loss,
+   parameter and the carry bitwise equal (or the widest gaps printed, the
+   loss's within the training cell's limit), launches exact a step, the
+   counters at three captures and the steps replayed; one more replayed
+   step's warp kernels counted by name in CUPTI's records against the
+   capture's launches (which each replay adds to the counters); ms a
+   step and peak memory of both.
+17. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -278,7 +291,10 @@ DEVICE = "cuda"
 TRAIN_RES = (128, 128)
 TRAIN_B = 8
 TRAIN_N = 8192  # events per pass and lane
-TRAIN_STEPS = 5  # timed, after one warm-up step
+TRAIN_STEPS = 5  # after one warm-up step
+# a training run's steps before those timed: the eager warm-up and the step
+# that captures the CUDA graph
+UNTIMED = 2
 # kernel launches per training step (10 passes, Iterative loss "two")
 TRAIN_LAUNCHES = {"splat_bilinear": 124, "gather_bilinear": 80,
                   "gather_fused": 116, "row_gather": 0}
@@ -389,7 +405,7 @@ PNG_SHARE = 0.999  # flow_bw pixels within one lattice step, card vs CPU
 # fused gather per IWE splat and the arrival gather's d_maps splat
 LINEAR_LAUNCHES = {"splat_bilinear": 12, "gather_bilinear": 4,
                    "gather_fused": 8, "row_gather": 0}
-LINEAR_STEPS = 3  # timed, after one warm-up step
+LINEAR_STEPS = 3  # after one warm-up step
 # per Linear DSEC window: one gather per pass (each event's arrival flow),
 # RSAT/FWL's two splats and one splat of the P - 1 older maps pushed to the
 # latest pass (the AEE flow); a rectified window adds its row gather
@@ -1447,19 +1463,19 @@ def profile_window(pipe, passes, out_dir):
 # ------------------------------------------------------------ training phase
 
 
-def train_window(rng, batch, device=DEVICE):
-    """One training window of ``PASSES`` passes as ``bench.py``'s
-    ``_synthetic_events`` builds it (uniform integer pixels, uniform ts,
-    +-1 polarity), every event on the gradient path, with the count input
-    derived on the device. On the card unless the caller asks for the CPU.
-    """
+def train_window(rng, batch, device=DEVICE, n=TRAIN_N):
+    """One training window of ``PASSES`` passes of ``n`` events a lane as
+    ``bench.py``'s ``_synthetic_events`` builds it (uniform integer pixels,
+    uniform ts, +-1 polarity), every event on the gradient path, with the
+    count input derived on the device. On the card unless the caller asks
+    for the CPU."""
     import torch
 
     from taming_event_flow_tpu_torch.ops import derive_count_input
     from taming_event_flow_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    shape = (PASSES, batch, TRAIN_N)
+    shape = (PASSES, batch, n)
     ev = np.zeros(shape + (4,), np.float32)
     ev[..., 0] = rng.uniform(0, 1, shape)
     ev[..., 1] = rng.integers(0, TRAIN_RES[0], shape)
@@ -1603,7 +1619,8 @@ def fused_gather_census(step, state, window):
     cuda_warp.SplatBilinearFn.backward = staticmethod(splat_spy)
     cuda_warp.GatherBilinearFn.backward = staticmethod(gather_spy)
     try:
-        state, _ = step(state, window)
+        # eager: a graph's replay runs no Python, so no spy
+        state, _ = step.eager(state, window)
     finally:
         cuda_warp.SplatBilinearFn.backward = staticmethod(splat_bw)
         cuda_warp.GatherBilinearFn.backward = staticmethod(gather_bw)
@@ -1973,9 +1990,10 @@ def train_phase(rng, profile_dir):
     check(all(a != b for a, b in zip(losses, losses[1:])),
           f"the loss did not change between steps: {losses}")
     check(state.step == len(windows), "step count")
-    ms_step = float(np.mean(secs[1:])) * 1e3
+    ms_step = float(np.mean(secs[UNTIMED:])) * 1e3
     per_step = {k: v / len(windows) for k, v in launches.items()}
-    print(f"train: {ms_step:.3f} ms/step (mean of {TRAIN_STEPS} warm steps, "
+    print(f"train: {ms_step:.3f} ms/step (mean of {len(secs) - UNTIMED} "
+          f"steps after the warm-up and the capture, "
           f"B={TRAIN_B}, {TRAIN_RES[0]}x{TRAIN_RES[1]}, P={PASSES}, "
           f"N={TRAIN_N}); launches {launches} ({per_step} per step); peak "
           f"memory {peak / 2**30:.3f} GiB ({peak} B; requested {asked} B)")
@@ -2580,10 +2598,10 @@ def eval_cli_phase(seed, work, runid, eval_launches, gpu):
 
 def linear_train(rng):
     """(a) The training slice with the Linear loss: 1 warm-up and
-    ``LINEAR_STEPS`` timed steps at B = 8, launches per step against
-    ``LINEAR_LAUNCHES``; then card against CPU at B = 1 (step loss, and
-    the loss's flow gradient on identical flows). Returns the launches and
-    ms per step."""
+    ``LINEAR_STEPS`` steps at B = 8 (timed after the capture), launches
+    per step against ``LINEAR_LAUNCHES``; then card against CPU at B = 1
+    (step loss, and the loss's flow gradient on identical flows). Returns
+    the launches and ms per step."""
     import torch
 
     from taming_event_flow_tpu_torch.objectives import LossConfig, linear_loss
@@ -2613,9 +2631,10 @@ def linear_train(rng):
           f"linear training launches {launches}, expected {expect}")
     check(all(a != b for a, b in zip(losses, losses[1:])),
           f"linear: the loss did not change between steps: {losses}")
-    ms_step = float(np.mean(secs[1:])) * 1e3
+    ms_step = float(np.mean(secs[UNTIMED:])) * 1e3
     print(f"registry (a) linear train: {ms_step:.3f} ms/step (mean of "
-          f"{LINEAR_STEPS} warm steps, B={TRAIN_B}, {TRAIN_RES[0]}x"
+          f"{len(secs) - UNTIMED} steps after the warm-up and the capture, "
+          f"B={TRAIN_B}, {TRAIN_RES[0]}x"
           f"{TRAIN_RES[1]}, P={PASSES}, N={TRAIN_N}, f32); launches "
           f"{launches} ({ {k: v // len(windows) for k, v in launches.items()} }"
           f" per step); peak memory {peak / 2**30:.3f} GiB ({peak} B)")
@@ -3334,8 +3353,9 @@ def parallel_references(seed):
     ref.update(flows=flows.cpu().numpy(), loss=float(loss),
                grad=f.grad.cpu().numpy(), step_losses=[], rows=[])
     for _ in range(PAR_STEPS):
+        # eager, as the mesh steps run: a replay calls no launch wrapper
         with launch_rows() as rows:
-            state, loss = step(state, window)
+            state, loss = step.eager(state, window)
         ref["step_losses"].append(float(loss))
         ref["rows"].append(rows)
 
@@ -3569,7 +3589,7 @@ def parallel_phase(seed, work, runid):
 
 # ------------------------------------------------ options and wires phase
 
-OPT_STEPS = 3  # timed steps of each training option, after one warm-up
+OPT_STEPS = 3  # steps of each training option, after one warm-up
 # model options through the training cell; each keeps the Iterative
 # loss's launches a step
 MODEL_OPTIONS = {"norm_in": {"norm": "IN"},
@@ -3594,9 +3614,10 @@ WIRE_STEP_RTOL = 1e-5  # the training CLI's first steps, packed vs plain
 def option_steps(tag, rng, model_change=None, loss_change=None,
                  expect=TRAIN_LAUNCHES, phase="options"):
     """The training cell (B = 8) with a model or loss option: one warm-up
-    and ``OPT_STEPS`` timed steps. Checks finite, changing losses, every
-    parameter's gradient and ``expect`` launches a step; returns the
-    launches, ms/step and peak memory (GiB). ``phase`` heads its line."""
+    and ``OPT_STEPS`` steps, timed after the capture. Checks finite,
+    changing losses, every parameter's gradient and ``expect`` launches a
+    step; returns the launches, ms/step and peak memory (GiB). ``phase``
+    heads its line."""
     import torch
 
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
@@ -3624,9 +3645,10 @@ def option_steps(tag, rng, model_change=None, loss_change=None,
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     check(all(a != b for a, b in zip(losses, losses[1:])),
           f"{tag}: the loss did not change between steps: {losses}")
-    ms = float(np.mean(secs[1:])) * 1e3
+    ms = float(np.mean(secs[UNTIMED:])) * 1e3
     print(f"{phase} {tag}: losses {[f'{v:.7f}' for v in losses]}; "
-          f"{ms:.3f} ms/step (mean of {OPT_STEPS} warm steps, B={TRAIN_B}); "
+          f"{ms:.3f} ms/step (mean of {len(secs) - UNTIMED} steps after the "
+          f"warm-up and the capture, B={TRAIN_B}); "
           f"launches a step {expect}; peak memory {peak:.3f} GiB")
     del model, step, state, windows
     torch.cuda.empty_cache()
@@ -4520,8 +4542,10 @@ def transposed_profile(models, pipes, window, rng, out_dir, gpu):
 
         trained, step, state = build_trainer(
             TRAIN_B, DEVICE, model_config=MODEL_KINDS[kind])
-        state, _ = step(state, batch)  # warm-up
-        calls = decoder_calls(trained, lambda: step(state, batch))
+        for _ in range(UNTIMED):  # the eager warm-up and the capture
+            state, _ = step(state, batch)
+        # eager: the pre-hooks run in Python, which a replay skips
+        calls = decoder_calls(trained, lambda: step.eager(state, batch))
         dec_step = decoder_device_ms(calls, backward=True)
         _, busy_step = profile_run(lambda: step(state, batch), out_dir,
                                    f"train_{kind}", trace=False)
@@ -5016,7 +5040,8 @@ def detector_child():
                                    align_corners=False))
     _, step, state = steps["default"]
     try:
-        step(state, train_window(np.random.default_rng(0), TRAIN_B))
+        # eager: a capture would record the patched backward, not run it
+        step.eager(state, train_window(np.random.default_rng(0), TRAIN_B))
         print("detector: a step with F.interpolate's backward ran (torch "
               f"{torch.__version__} does not flag it)", flush=True)
     except RuntimeError as err:
@@ -5276,11 +5301,13 @@ def det_cost(shapes, gpu):
         for tag, det, up in variants:
             flags.deterministic = det
             blocks.upsample_bilinear = model_mod.upsample_bilinear = up
-            state, _ = step(state, window)  # warm: a new algorithm choice
+            # eager: the split reads the aten ops a replay does not
+            # dispatch, and a graph would keep the flags of its capture
+            state, _ = step.eager(state, window)  # warm: a new algorithm
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                state, _ = step(state, window)
+                state, _ = step.eager(state, window)
                 torch.cuda.synchronize()
             split[tag] = step_split(prof.key_averages())
             print(f"determinism (f) one training step on {gpu}, {tag}: "
@@ -5448,6 +5475,210 @@ def bench_phase(gpu):
     return total, out
 
 
+# ------------------------------------------------------- graph phase (16)
+
+GRAPH_STEPS = 10  # steps of the training window's shape, graphed and eager
+# then rounds of three shapes in turn: half and a quarter of the events,
+# each warmed up and captured once, and the first shape again
+GRAPH_ROUNDS = 3
+GRAPH_LIMITS = "benchmark/limits/iter_train_b8.json"
+# the kernels of csrc/warp_kernels.cu that each launch counter stands for
+# (a splat is three, a scan, the splat and a finish pass)
+WARP_KERNELS = {"splat_bilinear": ("splat_scan_kernel", "splat_kernel",
+                                   "splat_finish_kernel"),
+                "gather_bilinear": ("gather_kernel",),
+                "gather_fused": ("gather_fused_kernel",),
+                "row_gather": ("row_gather_kernel",)}
+
+
+def graph_windows(rng):
+    """Phase 16's windows: ``GRAPH_STEPS`` of the training shape, then
+    ``GRAPH_ROUNDS`` rounds of half its events, a quarter and the training
+    shape; and the indices of the steps that run eagerly (each shape's
+    first) and that capture (each shape's second)."""
+    first = [train_window(rng, TRAIN_B) for _ in range(GRAPH_STEPS)]
+    half = [train_window(rng, TRAIN_B, n=TRAIN_N // 2)
+            for _ in range(GRAPH_ROUNDS)]
+    quarter = [train_window(rng, TRAIN_B, n=TRAIN_N // 4)
+               for _ in range(GRAPH_ROUNDS)]
+    windows = first + [w for i in range(GRAPH_ROUNDS)
+                       for w in (half[i], quarter[i], first[i])]
+    eager_at = {0, GRAPH_STEPS, GRAPH_STEPS + 1}
+    capture_at = {1, GRAPH_STEPS + 3, GRAPH_STEPS + 4}
+    return windows, eager_at, capture_at
+
+
+def graph_run(warping, windows, eager):
+    """The seeded trainer of :func:`build_trainer` with the ``warping``
+    loss over ``windows``: through ``step.eager``, or as the port runs it on
+    the card (a CUDA graph from each window shape's second step), under a
+    CPU-only profile so that its counters record. Returns every step's
+    loss, the parameters and the carry (one dict), each step's launches and
+    synchronised seconds, the peak memory, the profile's record, and the
+    step and its state after the last window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+    from taming_event_flow_tpu_torch.utils.diagnostics import recorded
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step, state = build_trainer(TRAIN_B, DEVICE, warping)
+    call = step.eager if eager else step
+    losses, launches, secs = [], [], []
+    t0_ns = time.time_ns()
+    with (contextlib.nullcontext() if eager
+          else profile(activities=[ProfilerActivity.CPU])):
+        for w in windows:
+            before = dict(LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = call(state, w)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches.append(launch_delta(before))
+            losses.append(loss)
+    rows = [e for e in recorded() if e.start_ns >= t0_ns]
+    out = {"loss": torch.stack(losses)}
+    out.update({f"param {k}": v.detach().clone()
+                for k, v in model.state_dict().items()})
+    out.update({f"carry {i}": c.clone() for i, c in enumerate(state.carry)})
+    return (out, launches, secs, torch.cuda.max_memory_allocated(), rows,
+            step, state)
+
+
+def replay_kernels(step, state, window):
+    """One replayed step under the profiler with CUDA activity on: the
+    launches of each kernel of ``WARP_KERNELS`` by name in CUPTI's kernel
+    records, and the number of device rows (a trace without them is taken
+    again, up to five times)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, window)
+            torch.cuda.synchronize()
+        rows = [a for a in prof.key_averages()
+                if a.device_type == DeviceType.CUDA
+                and not a.is_user_annotation]
+        if rows:
+            break
+    found = {counter: {k: sum(a.count for a in rows
+                              if re.search(rf"\b{k}\b", a.key))
+                       for k in kernels}
+             for counter, kernels in WARP_KERNELS.items()}
+    return found, len(rows)
+
+
+def graph_phase(seed, gpu):
+    """Phase 16: the training step as a CUDA graph. For the Iterative and
+    the Linear loss, the windows of :func:`graph_windows` (three shapes,
+    interleaved after the first ten steps: each shape warms up, captures
+    once and then replays) graphed against the same steps run eagerly from
+    the same weights: every step's loss, every parameter and the carry
+    bitwise equal (else the widest gaps printed, the loss's within the
+    training cell's ``loss1_gap``), each step's launches exact, three
+    captures and ``train_graph_replays`` equal to the steps replayed. Then
+    one more replayed step under the profiler: each warp kernel's launches
+    by name in CUPTI's records equal to those the capture counted (what a
+    replay adds to ``ops.LAUNCHES``) and to the expected launches a step.
+    Prints ms a step (synchronised each step) and the peak memory of both.
+    Returns the launches and the Iterative ms a step, graphed and eager."""
+    import torch
+
+    from taming_event_flow_tpu_torch.training import graphed
+
+    t_phase = time.perf_counter()
+    windows, eager_at, capture_at = graph_windows(
+        np.random.default_rng([seed, 16]))
+    total = {k: 0 for k in TRAIN_LAUNCHES}
+    times = {}
+    for warping, per_step in (("Iterative", TRAIN_LAUNCHES),
+                              ("Linear", LINEAR_LAUNCHES)):
+        g_out, g_launches, g_secs, g_peak, rows, step, state = graph_run(
+            warping, windows, eager=False)
+        e_out, e_launches, e_secs, e_peak, _, _, _ = graph_run(
+            warping, windows, eager=True)
+        for i, (a, b) in enumerate(zip(g_launches, e_launches)):
+            check(a == per_step and b == per_step, f"graph (16) {warping} "
+                  f"step {i}: launches {a} graphed, {b} eager, expected "
+                  f"{per_step}")
+        for k in total:
+            total[k] += sum(n[k] for n in g_launches + e_launches)
+        counted = {name: sum(e.value for e in rows if e.name == name
+                             and e.value is not None)
+                   for name in ("train_graph_captures",
+                                "train_graph_replays")}
+        replayed = len(windows) - len(eager_at)
+        check(counted == {"train_graph_captures": len(capture_at),
+                          "train_graph_replays": replayed},
+              f"graph (16) {warping}: counters {counted}, expected "
+              f"{len(capture_at)} captures and {replayed} replays")
+        differ = [k for k in e_out if not torch.equal(bits(g_out[k]),
+                                                      bits(e_out[k]))]
+        if differ:
+            gaps = sorted(((float((g_out[k] - e_out[k]).abs().max()
+                                  / e_out[k].abs().max().clamp_min(1e-30)),
+                            k) for k in differ), reverse=True)
+            with open(os.path.join(os.path.dirname(
+                    os.path.abspath(__file__)), GRAPH_LIMITS)) as f:
+                limit = json.load(f)["limits"]["loss1_gap"]
+            loss_gap = float(((g_out["loss"] - e_out["loss"]).abs()
+                              / e_out["loss"].abs()).max())
+            print(f"graph (16) {warping}: graphed and eager differ in "
+                  f"{len(differ)} of {len(e_out)} tensors; widest relative "
+                  f"gaps {gaps[:5]}; the losses' {loss_gap:.3e} (the "
+                  f"training cells' loss1_gap {limit})")
+            check(loss_gap <= limit, f"graph (16) {warping}: loss gap "
+                  f"{loss_gap} over {limit}")
+        else:
+            print(f"graph (16) {warping}: {len(windows)} steps over three "
+                  f"shapes graphed and eager bitwise equal in all "
+                  f"{len(e_out)} tensors (every step's loss, the "
+                  f"parameters, the carry; losses "
+                  f"{[f'{v:.9g}' for v in e_out['loss'].tolist()]})")
+        # a replay's launches are the capture's: count its kernels on the
+        # device instead
+        g = step.graphs.graphs[graphed.signature(state.carry, windows[2])]
+        found, n_rows = replay_kernels(step, state, windows[2])
+        bad = {c: k for c, k in found.items()
+               if set(k.values()) != {g.launches[c]}
+               or g.launches[c] != per_step[c]}
+        check(not bad, f"graph (16) {warping}: a replayed step's kernels "
+              f"{found} ({n_rows} device rows) against the capture's "
+              f"launches {g.launches}, expected {per_step}")
+        print(f"graph (16) {warping}: one replayed step's warp kernels in "
+              f"CUPTI's records {found}, the capture's launches "
+              f"{g.launches}")
+        replays = [t for i, t in enumerate(g_secs[:GRAPH_STEPS])
+                   if i not in eager_at | capture_at]
+        warm = e_secs[1:GRAPH_STEPS]
+        times[warping] = (float(np.mean(replays)) * 1e3,
+                          float(np.mean(warm)) * 1e3)
+        kept = len(step.graphs.graphs)
+        print(f"graph (16) {warping} on {gpu}: {times[warping][0]:.3f} "
+              f"ms/step replayed, {times[warping][1]:.3f} eager (B = "
+              f"{TRAIN_B}, N = {TRAIN_N}, each step synchronised; the "
+              f"graphed run under a CPU-only profile); capture steps "
+              f"{[round(g_secs[i] * 1e3, 1) for i in sorted(capture_at)]}"
+              f" ms; {kept} graphs in one pool; peak memory "
+              f"{g_peak / 2**30:.3f} GiB graphed, {e_peak / 2**30:.3f} "
+              f"eager ({g_peak} / {e_peak} B)")
+        del g_out, e_out, step, state, g
+        torch.cuda.empty_cache()
+    print(f"phase 16 graph: {time.perf_counter() - t_phase:.1f} s on {gpu}; "
+          f"launches {total}")
+    return total, times["Iterative"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5513,6 +5744,7 @@ def main(argv=None):
             args.seed, work, train_data, per_window, gpu, args.profile)
         det_launches = determinism_phase(args.seed, work, train_data, gpu)
         bench_launches, bench = bench_phase(gpu)
+        graph_launches, graph_ms = graph_phase(args.seed, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5521,7 +5753,8 @@ def main(argv=None):
              "eval_cli": eval_cli_launches, "registry": registry_launches,
              "parallel": par_launches, "options": option_launches,
              "jax_run": jax_launches, "transposed": trans_launches,
-             "determinism": det_launches, "bench": bench_launches}
+             "determinism": det_launches, "bench": bench_launches,
+             "graph": graph_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -5568,6 +5801,8 @@ def main(argv=None):
           f"{bench['detail']['mfu']}); B=1 "
           f"{bench['detail']['train_b1']['train_step_ms']} ms/step; DSEC "
           f"{bench['detail']['dsec_480x640_inference']['pass_ms']} ms/pass")
+    print(f"graph_train_ms_per_step {graph_ms[0]:.4f} replayed, "
+          f"{graph_ms[1]:.4f} eager (B={TRAIN_B}, f32, synchronised)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

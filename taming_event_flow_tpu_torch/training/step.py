@@ -2,11 +2,12 @@
 ``taming_event_flow_tpu/training/step.py``.
 
 The JAX builders return jitted pure programs; here they return plain
-closures that run eagerly. The model holds its own weights and the
-optimizer its own moments, so no ``params`` or ``opt_state`` travels with
-each call: the train step updates both in place and returns a
-:class:`TrainState` of what does travel, the recurrent carry and the step
-count.
+closures that run eagerly, apart from the train step on the card, which
+replays its device work as a CUDA graph (:mod:`.graphed`). The model
+holds its own weights and the optimizer its own moments, so no ``params``
+or ``opt_state`` travels with each call: the train step updates both in
+place and returns a :class:`TrainState` of what does travel, the
+recurrent carry and the step count.
 
 Training (:func:`make_train_step`): P passes with grad enabled, the
 contrast-max loss of ``LOSS_REGISTRY`` (Iterative or Linear) on the
@@ -39,6 +40,7 @@ from ..objectives import LOSS_REGISTRY, LossConfig
 from ..ops.encodings import derive_count_input, unpack_event_wire
 from ..utils.device import resolve_device
 from ..utils.diagnostics import annotate
+from . import graphed
 
 
 class TrainState(NamedTuple):
@@ -177,37 +179,57 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
       * ``grad_mask``: ``[P, B, N, 1]``
 
     The step updates the model's parameters and the optimizer's state in
-    place; ``loss`` is a detached scalar tensor (reading it syncs). While
-    a profile is active it records the span ``train.step`` (rid: the
-    state's step count) with the children ``train.forward`` (unpack and
-    the P passes), ``train.loss``, ``train.backward`` and
-    ``train.optimizer`` (the clip and the update).
+    place; ``loss`` is a detached scalar tensor (reading it syncs). On the
+    card the unpack, the passes, the loss and the backward run as a CUDA
+    graph from a window signature's second call on (:mod:`.graphed`: the
+    first runs eagerly; the optimizer always does); on the CPU the step
+    runs eagerly. ``step.eager`` runs a step eagerly on either; a replay
+    runs the kernels the eager step launches, so both give the same bits.
+
+    While a profile is active the step records the span ``train.step``
+    (rid: the state's step count) with the children ``train.forward``
+    (unpack and the P passes), ``train.loss``, ``train.backward`` and
+    ``train.optimizer`` (the clip and the update) when it runs eagerly, and
+    ``train.replay`` (with ``train.capture`` before it on a capture) and
+    ``train.optimizer`` when it replays.
     """
     loss_fn = LOSS_REGISTRY[warping]
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def step(state: TrainState, raw_window: Dict[str, torch.Tensor]):
-        with annotate("train.step", rid=state.step):
-            with annotate("train.forward"):
-                window = unpack_window(raw_window, res=res)
-                for p in params:
-                    p.grad = None
-                with torch.enable_grad():
-                    flows, carry = run_passes(model, state.carry,
-                                              window["net_input"],
-                                              flow_scaling)
+    def device_work(carry, raw_window):
+        with annotate("train.forward"):
+            window = unpack_window(raw_window, res=res)
+            for p in params:
+                p.grad = None
             with torch.enable_grad():
-                with annotate("train.loss"):
-                    loss = loss_fn(flows, window["event_list"],
-                                   window["pol_mask"], window["grad_mask"],
-                                   loss_cfg)
-                with annotate("train.backward"):
-                    loss.backward()
+                flows, carry = run_passes(model, carry,
+                                          window["net_input"], flow_scaling)
+        with torch.enable_grad():
+            with annotate("train.loss"):
+                loss = loss_fn(flows, window["event_list"],
+                               window["pol_mask"], window["grad_mask"],
+                               loss_cfg)
+            with annotate("train.backward"):
+                loss.backward()
+        return loss.detach(), tuple(c.detach() for c in carry)
+
+    graphs = graphed.StepGraphs(params, device_work)
+
+    def run(state: TrainState, raw_window, use_graphs: bool):
+        with annotate("train.step", rid=state.step):
+            out = graphs(state.carry, raw_window) if use_graphs else None
+            if out is None:
+                out = device_work(state.carry, raw_window)
             with annotate("train.optimizer"):
                 optimizer.step()
-            carry = tuple(c.detach() for c in carry)
-        return TrainState(carry, state.step + 1), loss.detach()
+        loss, carry = out
+        return TrainState(carry, state.step + 1), loss
 
+    def step(state: TrainState, raw_window: Dict[str, torch.Tensor]):
+        return run(state, raw_window, graphed.uses_graphs(params))
+
+    step.eager = lambda state, raw_window: run(state, raw_window, False)
+    step.graphs = graphs
     return step
 
 
