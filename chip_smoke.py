@@ -250,7 +250,16 @@ one NVIDIA card.
    step's warp kernels counted by name in CUPTI's records against the
    capture's launches (which each replay adds to the counters); ms a
    step and peak memory of both.
-17. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
+17. E-RAFT phase: the correlation lookup of ``models/eraft.py`` on the
+   kernels at the shapes it runs them in: at DSEC's 480x640 (4,800 lanes
+   of 81 taps over the 60x80 to 7x10 levels, centres on, near and far off
+   the grid) the gather bitwise its plain version at every level and
+   through ``lookup``; at the training shape (128x128, B = 2) the map
+   gradient (the splat, through the autograd Function) within
+   KERNEL_RTOL of its plain version; the launches of a bf16 eval pass
+   (48 gathers) and of a training forward and backward of two passes
+   (96 gathers, 96 splats) exact; the lookup's time and bound.
+18. Prints the ``kernels`` JSON line and, last, ``{"ok": true, ...}``.
    A line after the card's first print gives the version of h5py, PyYAML,
    cv2 and tensorboard there (``null`` where one does not import).
 
@@ -5679,6 +5688,234 @@ def graph_phase(seed, gpu):
     return total, times["Iterative"]
 
 
+# ------------------------------------------------------------- E-RAFT phase
+
+# E-RAFT's lookup (models/eraft.py): a gather a pyramid level and
+# iteration, over one lane of (2r + 1)^2 taps a query position at 1/8 of the
+# padded input; in training also a splat of the map gradient a gather (the
+# coordinates are detached, so no fused gather)
+ERAFT_CONFIG = {"name": "ERAFT", "iters": 12, "corr_levels": 4,
+                "corr_radius": 4, "hidden_dim": 128, "context_dim": 128,
+                "fnet_dim": 256}
+ERAFT_TRAIN = (2, (128, 128), 2)  # B, resolution, passes
+ERAFT_PASS_GATHERS = ERAFT_CONFIG["iters"] * ERAFT_CONFIG["corr_levels"]
+
+
+def eraft_centres(rng, batch, h, w):
+    """Lookup centres ``[B, 2, h, w]`` float32 (x, y) at ``h x w`` query
+    positions, in a random order: a third on the pixel grid (the first
+    iteration's), a third within 3 px of it, a third up to 40 px off
+    (most of their taps out of frame at every level)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import eraft
+
+    n = h * w
+    third = n // 3
+    flow = np.zeros((batch, 2, n), np.float32)
+    flow[..., third:2 * third] = rng.uniform(-3, 3, (batch, 2, third))
+    flow[..., 2 * third:] = rng.uniform(-40, 40, (batch, 2, n - 2 * third))
+    flow = flow[..., rng.permutation(n)].reshape(batch, 2, h, w)
+    return (eraft.coords_grid(batch, h, w, DEVICE)
+            + torch.from_numpy(flow).to(DEVICE))
+
+
+def eraft_pyramid(rng, batch, h, w, dim=256):
+    """The float32 correlation pyramid of two seeded feature maps ``[B,
+    dim, h, w]`` (``models/eraft.py: corr_pyramid``)."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import eraft
+
+    f1, f2 = (torch.from_numpy(rng.standard_normal((batch, dim, h, w))
+                               .astype(np.float32)).to(DEVICE)
+              for _ in range(2))
+    return eraft.corr_pyramid(f1, f2, ERAFT_CONFIG["corr_levels"])
+
+
+def eraft_taps(pyramid, coords):
+    """Each level's gather input as ``models/eraft.py: lookup`` builds it:
+    ``(maps [B h w, h_l, w_l, 1], loc [B h w, K, 2])``."""
+    from taming_event_flow_tpu_torch.models import eraft
+
+    b, _, h, w = coords.shape
+    centre = coords.permute(0, 2, 3, 1).reshape(b * h * w, 1, 2).flip(-1)
+    offsets = eraft.tap_offsets(ERAFT_CONFIG["corr_radius"], coords.device)
+    return [(maps, (centre / 2 ** level + offsets).contiguous())
+            for level, maps in enumerate(pyramid)]
+
+
+def out_of_frame(loc, h, w):
+    """Share of the taps in ``loc [..., 2]`` none of whose corners lies in
+    an ``h x w`` map."""
+    y, x = loc[..., 0], loc[..., 1]
+    return float(((y <= -1) | (y >= h) | (x <= -1) | (x >= w)).float()
+                 .mean())
+
+
+def eraft_phase(seed, gpu):
+    """Phase 17: E-RAFT's correlation lookup on the card (``models/
+    eraft.py``), at the shapes the model runs the bilinear kernels in: (a)
+    at DSEC's 480x640 (B = 1, 60x80 = 4,800 lanes of 81 taps), every level
+    of a seeded correlation pyramid gathered by the kernel at ``centre /
+    2^l + tap offsets`` bitwise against ``gather_bilinear_plain``, with
+    centres on the grid, near it and far outside the frame, and the whole
+    ``lookup`` bitwise against the same built from the plain gathers; (b)
+    at the training shape (128x128, B = 2: 512 lanes), the map gradient
+    through the autograd Function (the splat kernel) within KERNEL_RTOL of
+    ``splat_bilinear_plain`` at every level; (c) the launches of one DSEC
+    eval pass (the bf16 eval copy, ``training/step.py: _eval_net``) and of
+    one training forward and backward of two passes with the carry, each
+    exact; the lookup's time and its memory bound. Returns the launches,
+    and the lookup's and the map gradient's timings."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model, eraft
+    from taming_event_flow_tpu_torch.ops import (
+        LAUNCHES,
+        cuda_warp,
+        reset_launches,
+    )
+    from taming_event_flow_tpu_torch.ops.warp import gather_values
+    from taming_event_flow_tpu_torch.training.step import _eval_net
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 17])
+    radius = ERAFT_CONFIG["corr_radius"]
+    k = (2 * radius + 1) ** 2
+    total = {name: 0 for name in LAUNCHES}
+
+    # (a) the lookup at DSEC's shape
+    h, w = (n // 8 for n in RES)
+    pyramid = eraft_pyramid(rng, 1, h, w)
+    coords = eraft_centres(rng, 1, h, w)
+    shares = []
+    for level, (maps, loc) in enumerate(eraft_taps(pyramid, coords)):
+        got = cuda_warp.gather_bilinear(maps, loc)
+        want = cuda_warp.gather_bilinear_plain(maps, loc)
+        check(torch.equal(got, want), f"eraft (17) lookup level {level} "
+              f"({tuple(maps.shape)}, {tuple(loc.shape)}): not bitwise, "
+              f"widest gap {float((got - want).abs().max())}")
+        shares.append(out_of_frame(loc, maps.shape[1], maps.shape[2]))
+    check(0 < shares[0] < 1, f"eraft (17) lookup: out-of-frame shares "
+          f"{shares}, not a mix")
+    plain = torch.cat([cuda_warp.gather_bilinear_plain(maps, loc)
+                       for maps, loc in eraft_taps(pyramid, coords)], dim=1)
+    plain = plain.reshape(1, h, w, -1).permute(0, 3, 1, 2)
+    reset_launches()
+    got = eraft.lookup(pyramid, coords, radius)
+    check(LAUNCHES["gather_bilinear"] == len(pyramid),
+          f"eraft (17) lookup: launches {dict(LAUNCHES)}")
+    check(torch.equal(got, plain), "eraft (17) lookup: the model's lookup "
+          "is not bitwise the plain gathers'")
+    print(f"eraft (17) lookup at {h}x{w} queries, 81 taps, levels "
+          f"{[tuple(p.shape[1:3]) for p in pyramid]}: kernel bitwise the "
+          f"plain gather at every level and through models/eraft.py: "
+          f"lookup; out-of-frame tap shares "
+          f"{[round(v, 4) for v in shares]}")
+    lookup = lambda: eraft.lookup(pyramid, coords, radius)  # noqa: E731
+    lanes = h * w
+    nbytes = lanes * len(pyramid) * ((2 * radius + 2) ** 2 + k + 2) * 4
+    b_ms, _ = bound_ms(nbytes, 0)
+    timing = {"lookup": {"shape": f"{lanes} lanes x {k} taps x "
+                                  f"{len(pyramid)} levels, C = 1",
+                         "ms": time_ms(lookup),
+                         "device_ms": device_ms(lookup, "gather_kernel"),
+                         "host_us": host_us(lookup), "bound_ms": b_ms}}
+    del pyramid, coords, got, plain, want
+
+    # (b) the map gradient at the training shape
+    batch, res, passes = ERAFT_TRAIN
+    th, tw = (n // 8 for n in res)
+    pyramid = eraft_pyramid(rng, batch, th, tw)
+    coords = eraft_centres(rng, batch, th, tw)
+    worst = 0.0
+    for level, (maps, loc) in enumerate(eraft_taps(pyramid, coords)):
+        maps = maps.detach().requires_grad_(True)
+        g = torch.from_numpy(rng.standard_normal(
+            (loc.shape[0], k, 1)).astype(np.float32)).to(DEVICE)
+        gather_values(maps, loc).backward(g)
+        want = cuda_warp.splat_bilinear_plain(loc, g, tuple(maps.shape[1:3]))
+        torch.cuda.synchronize()
+        gap = float((maps.grad - want).abs().max())
+        check(torch.allclose(maps.grad, want, rtol=KERNEL_RTOL,
+                             atol=KERNEL_ATOL),
+              f"eraft (17) map gradient level {level} "
+              f"({tuple(maps.shape)}): widest gap {gap}")
+        worst = max(worst, gap)
+        if level == 0:
+            splat = lambda: cuda_warp.splat_bilinear(  # noqa: E731
+                loc, g, tuple(maps.shape[1:3]))
+            timing["map_gradient"] = {
+                "shape": f"{loc.shape[0]} lanes x {k} taps, "
+                         f"{th}x{tw}, C = 1",
+                "ms": time_ms(splat),
+                "device_ms": device_ms(splat, "splat"),
+                "host_us": host_us(splat)}
+    print(f"eraft (17) map gradient at {th}x{tw} queries, B = {batch}: "
+          f"the splat kernel within {KERNEL_RTOL} of the plain splat at "
+          f"every level (widest gap {worst:.3e})")
+    del pyramid, coords
+
+    # (c) launches of an eval pass and of a training forward and backward
+    model = build_model(ERAFT_CONFIG, num_bins=2, device=DEVICE, seed=seed)
+    net = _eval_net(model, torch.bfloat16)
+    x = torch.from_numpy(rng.poisson(0.3, (1,) + RES + (2,))
+                         .astype(np.float32)).to(DEVICE)
+    carry = net.init_state(1, *RES, torch.bfloat16, DEVICE)
+    with torch.no_grad():
+        _, carry = net(x.bfloat16(), carry)  # cuDNN's first calls
+        reset_launches()
+        flows, carry = net(x.bfloat16(), carry)
+        torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check(launches == dict({n: 0 for n in LAUNCHES},
+                           gather_bilinear=ERAFT_PASS_GATHERS),
+          f"eraft (17) eval pass: launches {launches}, expected "
+          f"{ERAFT_PASS_GATHERS} gathers")
+    check(bool(torch.isfinite(flows).all()), "eraft (17) eval pass: flows "
+          "not finite")
+    for n in total:
+        total[n] += launches[n]
+    with torch.no_grad():
+        pass_ms = time_ms(lambda: net(x.bfloat16(), carry), reps=5,
+                          warmup=1)
+    del net, flows, carry
+
+    model.train()
+    x = torch.from_numpy(rng.poisson(0.3, (batch,) + res + (2,))
+                         .astype(np.float32)).to(DEVICE)
+    carry = model.init_state(batch, *res, torch.float32, DEVICE)
+    reset_launches()
+    loss = 0.0
+    for _ in range(passes):
+        flows, carry = model(x, carry)
+        loss = loss + (flows * flows).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    per = passes * ERAFT_PASS_GATHERS
+    check(launches == dict({n: 0 for n in LAUNCHES}, gather_bilinear=per,
+                           splat_bilinear=per),
+          f"eraft (17) training forward and backward: launches {launches}, "
+          f"expected {per} gathers and {per} splats")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in
+              model.parameters() if p.grad is not None),
+          "eraft (17) training: a gradient is not finite")
+    for n in total:
+        total[n] += launches[n]
+    print(f"eraft (17) eval pass (bf16 copy, eval mode, {RES[0]}x{RES[1]}) "
+          f"{pass_ms:.3f} ms synchronised on {gpu}; launches a pass "
+          f"{ERAFT_PASS_GATHERS} gathers; training forward and backward of "
+          f"{passes} passes at {res[0]}x{res[1]}, B = {batch}: {per} "
+          f"gathers and {per} splats")
+    print(f"phase 17 eraft: {time.perf_counter() - t_phase:.1f} s on "
+          f"{gpu}; launches {total}")
+    del model, x, carry, loss
+    torch.cuda.empty_cache()
+    return total, timing
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5747,6 +5984,10 @@ def main(argv=None):
         graph_launches, graph_ms = graph_phase(args.seed, gpu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    eraft_launches, eraft_times = eraft_phase(args.seed, gpu)
+    kernels["gather_bilinear"]["eraft_lookup"] = eraft_times["lookup"]
+    kernels["splat_bilinear"]["eraft_map_gradient"] = \
+        eraft_times["map_gradient"]
 
     paths = {"dsec_eval": eval_launches, "dsec_rectified": rect_launches,
              "train": train_launches, "train_cli": cli_launches,
@@ -5754,7 +5995,7 @@ def main(argv=None):
              "parallel": par_launches, "options": option_launches,
              "jax_run": jax_launches, "transposed": trans_launches,
              "determinism": det_launches, "bench": bench_launches,
-             "graph": graph_launches}
+             "graph": graph_launches, "eraft": eraft_launches}
     entries = []
     for name in ("splat_bilinear", "gather_bilinear", "gather_fused",
                  "row_gather"):
@@ -5803,6 +6044,11 @@ def main(argv=None):
           f"{bench['detail']['dsec_480x640_inference']['pass_ms']} ms/pass")
     print(f"graph_train_ms_per_step {graph_ms[0]:.4f} replayed, "
           f"{graph_ms[1]:.4f} eager (B={TRAIN_B}, f32, synchronised)")
+    for tag, r in eraft_times.items():
+        print(f"eraft {tag} ({r['shape']}): event {r['ms']:.5f} ms, device "
+              f"{r['device_ms']:.5f} ms, host {r['host_us']:.3f} us per "
+              f"call" + (f"; bound {r['bound_ms']:.5f} ms"
+                         if "bound_ms" in r else ""))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(gpu)
     print(json.dumps({"kernels": entries}))

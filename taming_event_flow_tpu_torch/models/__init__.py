@@ -1,5 +1,12 @@
 from .fire import FireFlowNet, RecFireFlowNet
-from .model import EVFlowNet, RecEVFlowNet, build_model, pad_to_multiple, unpad
+from .model import (
+    ERAFT,
+    EVFlowNet,
+    RecEVFlowNet,
+    build_model,
+    pad_to_multiple,
+    unpad,
+)
 from .port import (
     flax_params_to_state_dict,
     optax_state_to_torch,
@@ -12,6 +19,7 @@ __all__ = [
     "EVFlowNet",
     "RecFireFlowNet",
     "FireFlowNet",
+    "ERAFT",
     "build_model",
     "pad_to_multiple",
     "unpad",

@@ -1,6 +1,7 @@
 """The model registry: the PyTorch counterpart of
 ``taming_event_flow_tpu/models/model.py`` (RecEVFlowNet, EVFlowNet and, from
-:mod:`.fire`, the FireFlowNet family, built by name in :func:`build_model`).
+:mod:`.fire`, the FireFlowNet family, built by name in :func:`build_model`),
+and E-RAFT (:mod:`.eraft`), which has no JAX counterpart.
 
 Public tensors keep the JAX package's layout: the input is NHWC
 ``[B, H, W, C]`` and the flows come back ``[S, B, H, W, 2]`` in (x, y)
@@ -131,11 +132,15 @@ class EVFlowNet(RecEVFlowNet):
         return ()
 
 
+# E-RAFT pads its input with pad_to_multiple above
+from .eraft import ERAFT  # noqa: E402
+
 _MODEL_REGISTRY = {
     "RecEVFlowNet": RecEVFlowNet,
     "EVFlowNet": EVFlowNet,
     "RecFireFlowNet": RecFireFlowNet,
     "FireFlowNet": FireFlowNet,
+    "ERAFT": ERAFT,
 }
 
 

@@ -1,5 +1,7 @@
 """JAX (Flax) parameters <-> the port's ``state_dict``, for the four model
-families of the registry, and an optax Adam state into a torch optimizer.
+families of the registry that the JAX package has, and an optax Adam state
+into a torch optimizer. ``ERAFT`` (``models/eraft.py``) has no JAX
+counterpart: its parameters and optimizer state raise ``ValueError`` here.
 
 The port's modules carry the reference torch names, so the Flax tree maps
 name for name (``taming_event_flow_tpu/models/port.py:
@@ -53,6 +55,14 @@ _PARTS = {"i": r"\d+", "gate": "reset_gate|update_gate|out_gate",
 # a conv layer's two Flax children and their torch names
 _LAYER = {"Conv_0": "conv2d", "GroupNorm_0": "norm_layer"}
 _LAYER_BACK = {v: k for k, v in _LAYER.items()}
+# the top-level modules of ERAFT, which the JAX package does not have
+_NO_FLAX = ("fnet.", "cnet.", "update_block.")
+
+
+def _refuse_eraft(names) -> None:
+    if any(n.startswith(_NO_FLAX) for n in names):
+        raise ValueError("ERAFT has no counterpart in the JAX package: its "
+                         "parameters and optimizer state have no Flax form")
 
 
 def _rules(side: int, layers: Mapping):
@@ -127,7 +137,9 @@ def state_dict_to_flax_params(state_dict: Mapping) -> Dict:
     ``[kh, kw, in, out]`` (a transposed conv's flipped back).
 
     :raises KeyError: on a parameter the Flax models have no leaf for.
+    :raises ValueError: for an ``ERAFT`` state_dict.
     """
+    _refuse_eraft(state_dict)
     params: Dict = {}
     for full, value in state_dict.items():
         name, leaf = full.rsplit(".", 1)
@@ -186,8 +198,10 @@ def optax_state_to_torch(opt_state_tree, model: torch.nn.Module,
 
     :raises ValueError: where the tree and the optimizer disagree: an Adam
         tree into SGD, a tree without an Adam node into Adam, a parameter
-        missing from or extra to the model, a shape that differs.
+        missing from or extra to the model, a shape that differs; for an
+        ``ERAFT`` model.
     """
+    _refuse_eraft(name for name, _ in model.named_parameters())
     kind = type(optimizer).__name__
     nodes = list(_adam_nodes(opt_state_tree))
     if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):

@@ -121,6 +121,8 @@ def make_event_parallel_train_step(
         if mesh.n_event > 1 and "net_input" not in raw_window:
             # derived from this rank's events alone it would be wrong
             raise ValueError("an event-sharded window needs its net_input")
+        if not model.training:
+            model.train()
         window = unpack_window(raw_window, res=res)
         for p in params:
             p.grad = None

@@ -189,7 +189,8 @@ class EvalPipeline:
 
     def __init__(self, config: Dict, model, device="cuda"):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        # the steps run an eval-mode copy; the caller's mode stays its own
+        self.model = model.to(self.device)
         self.vis = VisPolicy(config)
 
         self.res = tuple(config["loader"]["resolution"])

@@ -16,22 +16,32 @@ clip and the optimizer update. The carry handed to the next window is
 detached: truncated BPTT at the window edge, as the JAX step's pure carry
 is (reference ``models/model.py:50-60``).
 
+Modes: a train step puts a model left in eval mode back in training mode,
+and the eval steps run an eval-mode copy of the model's modules
+(:func:`_eval_net`) and never switch the caller's model, so one model
+object can alternate training steps and eval passes and get each right
+where a layer computes differently in the two (E-RAFT's BatchNorm,
+``models/eraft.py``). Switching a mode walks every module (a quarter of a
+millisecond for RecEVFlowNet), so neither step switches one on every call.
+
 Eval (:func:`make_eval_step`, :func:`make_eval_window_step`) runs under
 ``torch.inference_mode()``. ``inference_dtype`` (e.g. ``torch.bfloat16``)
 is the JAX package's contract (``step.py:225-235, 349-358``): the model,
 the carry and the input are cast to it for the forward pass, and the flow is
 cast back to float32 before the validation update, which stays float32. The
 builders cast a copy of the model once, so later changes to the caller's
-model do not reach a built step. With an event mesh (``parallel/eval.py``)
-the eval steps derive the inputs from the whole event list on every rank
-(the count input and the event mask see every event, as the replicated
-model and AEE's mask must), then keep this rank's N / E events for the
-update.
+model do not reach a built step; without a cast the step's copy shares the
+caller's parameters and buffers, and in-place changes to them do. With an
+event mesh (``parallel/eval.py``) the eval steps derive the inputs from the
+whole event list on every rank (the count input and the event mask see
+every event, as the replicated model and AEE's mask must), then keep this
+rank's N / E events for the update.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -186,6 +196,10 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
     runs eagerly. ``step.eager`` runs a step eagerly on either; a replay
     runs the kernels the eager step launches, so both give the same bits.
 
+    Each call puts a model whose mode flag reads eval back in training mode
+    first (``model.train()``; a submodule the caller set to eval inside a
+    model in training mode stays so).
+
     While a profile is active the step records the span ``train.step``
     (rid: the state's step count) with the children ``train.forward``
     (unpack and the P passes), ``train.loss``, ``train.backward`` and
@@ -216,6 +230,8 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
     graphs = graphed.StepGraphs(params, device_work)
 
     def run(state: TrainState, raw_window, use_graphs: bool):
+        if not model.training:
+            model.train()
         with annotate("train.step", rid=state.step):
             out = graphs(state.carry, raw_window) if use_graphs else None
             if out is None:
@@ -233,8 +249,16 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
     return step
 
 
-def _cast_model(model, dtype):
-    return model if dtype is None else copy.deepcopy(model).to(dtype)
+def _eval_net(model, dtype=None):
+    """The model an eval step runs, in eval mode whatever mode the caller's
+    model is in or takes later: with ``dtype``, a copy cast to it; without,
+    a copy of the modules alone, sharing the caller's parameters and
+    buffers."""
+    if dtype is not None:
+        return copy.deepcopy(model).to(dtype).eval()
+    shared = {id(t): t for t in itertools.chain(model.parameters(),
+                                                model.buffers())}
+    return copy.deepcopy(model, shared).eval()
 
 
 def _cast(carry, x, dtype):
@@ -262,11 +286,13 @@ def _derive_inputs(res, ev, x, pol, emask, raw=None, ridx=None):
 
 
 def make_forward_fn(model, flow_scaling: float = 32.0) -> Callable:
-    """Single-pass inference: ``(carry, x) -> (flows, carry)``."""
+    """Single-pass inference: ``(carry, x) -> (flows, carry)``, in eval
+    mode (:func:`_eval_net`)."""
+    net = _eval_net(model)
 
     @torch.inference_mode()
     def forward(carry, x):
-        flows, new_carry = model(x, carry)
+        flows, new_carry = net(x, carry)
         return flows * flow_scaling, new_carry
 
     return forward
@@ -288,7 +314,7 @@ def make_eval_step(model, val, flow_scaling: float = 32.0,
     window-boundary quantities. With an event ``mesh`` the update takes
     this rank's share of ``ev`` and ``pol`` (``val`` holds N / E slots).
     """
-    net = _cast_model(model, inference_dtype)
+    net = _eval_net(model, inference_dtype)
     if mesh is not None:
         from ..parallel.eval import shard_eval_batch
 
@@ -330,7 +356,7 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
     ``vstate`` before the first pass; ``extras(vstate, aux)`` adds a 4th
     return value; ``mesh`` as in :func:`make_eval_step`.
     """
-    net = _cast_model(model, inference_dtype)
+    net = _eval_net(model, inference_dtype)
     passes = val.cfg.passes
     if mesh is not None:
         from ..parallel.eval import shard_eval_window
