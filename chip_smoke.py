@@ -249,7 +249,15 @@ one NVIDIA card.
    counters at three captures and the steps replayed; one more replayed
    step's warp kernels counted by name in CUPTI's records against the
    capture's launches (which each replay adds to the counters); ms a
-   step and peak memory of both.
+   step and peak memory of both. Then the DSEC eval window step as a CUDA
+   graph, for the full-width RecEVFlowNet and E-RAFT (bf16, rectified, the
+   u32 wire with the card's lookup): five windows graphed (the second
+   captured while the eval CLI's ``MetricsConsumer`` thread copies the
+   first's metrics to the host) against the same windows run by
+   ``window.eager``: FWL, RSAT, AEE, ``flow_bw``, flows, carry and slot
+   state bitwise equal, launches exact a window (a replay adds the
+   capture's), the capture with the garbage collector off; ms a window of
+   both.
 17. E-RAFT phase: the correlation lookup of ``models/eraft.py`` on the
    kernels at the shapes it runs them in: at DSEC's 480x640 (4,800 lanes
    of 81 taps over the 60x80 to 7x10 levels, centres on, near and far off
@@ -5683,9 +5691,177 @@ def graph_phase(seed, gpu):
               f"eager ({g_peak} / {e_peak} B)")
         del g_out, e_out, step, state, g
         torch.cuda.empty_cache()
+    for k, n in eval_graph_phase(seed, gpu).items():
+        total[k] += n
     print(f"phase 16 graph: {time.perf_counter() - t_phase:.1f} s on {gpu}; "
           f"launches {total}")
     return total, times["Iterative"]
+
+
+EVAL_GRAPH_WINDOWS = 5  # graphed: the warm-up, the capture, three replays
+
+
+def eval_graph_run(model, windows, fwd, ridx, graphed_run):
+    """The DSEC protocol (``DSEC_CONFIG``, bf16) of ``model`` over the
+    rectified ``windows`` on the u32 wire with the card's rectification
+    lookup, each window's metrics and u16 ``flow_bw`` read back by the eval
+    CLI's ``MetricsConsumer`` on its thread. ``graphed_run``: the window
+    step as the port runs it on the card (a CUDA graph from the second
+    window on), its capture held until the reader thread has copied the
+    first window's metrics to the host during it; else ``window.eager``.
+    Returns each window's host metrics, flow, launches and synchronised
+    seconds, the last carry and slot state, and the window step."""
+    import gc
+    import threading
+
+    import torch
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+    from taming_event_flow_tpu_torch.pipeline import eval as pipe_eval
+    from taming_event_flow_tpu_torch.training import graphed
+
+    pipe = EvalPipeline(DSEC_CONFIG, model, device=DEVICE)
+    pipe.cur_ridx = ridx
+    pipe.cur_rect = fwd
+    capturing, copied = threading.Event(), threading.Event()
+
+    class CopiedDuringCapture(graphed.CudaGraph):
+        def capture(self, fn, pool=None):
+            def held():
+                capturing.set()
+                check(copied.wait(60), "graph (16) eval: the reader thread "
+                      "copied nothing to the host during the capture")
+                check(not gc.isenabled(), "graph (16) eval: the garbage "
+                      "collector is on inside the capture")
+                return fn()
+            return super().capture(held, pool)
+
+    if graphed_run:
+        pipe._window_step.graphs.graph_cls = CopiedDuringCapture
+    else:
+        pipe._window_step = pipe._window_step.eager
+    host = []
+    to_host = pipe_eval._to_host
+
+    def reading(dev_mets):
+        if graphed_run and not copied.is_set():
+            capturing.wait(60)
+            try:
+                out = to_host(dev_mets)
+            finally:
+                copied.set()
+        else:
+            out = to_host(dev_mets)
+        host.append(out)
+        return out
+
+    pipe_eval._to_host = reading
+    consumer = pipe_eval.MetricsConsumer(pipe.metric_names)
+    flows, launches, secs = [], [], []
+    try:
+        with torch.inference_mode():
+            for passes in windows:
+                before = dict(LAUNCHES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in passes:
+                    flow = pipe.ingest(pipe.ensure_bucket(b), {"ts": 0.0})
+                dev_mets, flow_bw = pipe.boundary_outputs(passes[-1],
+                                                          {"ts": 0.0})
+                dev_mets["flow_bw"] = flow_bw
+                consumer.put(dev_mets, "seq")
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                launches.append(launch_delta(before))
+                flows.append(flow)
+        consumer.close()
+    finally:
+        pipe_eval._to_host = to_host
+    return {"host": host, "flows": flows, "carry": pipe.carry,
+            "vstate": pipe.vstate.tensors(), "launches": launches,
+            "secs": secs, "pipe": pipe}
+
+
+def eval_graph_phase(seed, gpu):
+    """Phase 16, eval: the DSEC window step as a CUDA graph. For the
+    full-width RecEVFlowNet and E-RAFT (bf16, rectified, the u32 wire with
+    the rectification looked up on the card), ``EVAL_GRAPH_WINDOWS``
+    windows graphed (the first eager, the second captured while the eval
+    CLI's reader thread copies the first's metrics to the host, the rest
+    replayed) against the same windows run by ``window.eager``: every
+    window's FWL, RSAT, AEE, u16 ``flow_bw`` and flow, the last carry and
+    slot state bitwise equal; each window's launches exact (a replay adds
+    those its capture counted to ``ops.LAUNCHES``); one capture, with the
+    garbage collector off. A kernel missing from the graph would leave a
+    stale buffer, which windows of other events would show. (CUPTI's
+    kernel records of a replayed window are not counted here: late in a
+    long process they missed one of its two row gathers, in every trace
+    of a run.) Prints ms a window (synchronised) of both and peak memory.
+    Returns the launches."""
+    import torch
+
+    from taming_event_flow_tpu_torch.models import build_model
+
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    windows = rectified_windows(np.random.default_rng([seed, 16, 1]),
+                                EVAL_GRAPH_WINDOWS, fwd, ridx[0])
+    total = {k: 0 for k in TRAIN_LAUNCHES}
+    for name, cfg, per_pass in (
+            ("RecEVFlowNet", MODEL_CONFIG, 1),
+            ("ERAFT", ERAFT_CONFIG, 1 + ERAFT_PASS_GATHERS)):
+        model = build_model(dict(cfg), num_bins=2, device=DEVICE, seed=0)
+        expect = {"splat_bilinear": 2, "gather_bilinear": PASSES * per_pass,
+                  "gather_fused": 0, "row_gather": 2}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got = eval_graph_run(model, windows, fwd, ridx, True)
+        g_peak = torch.cuda.max_memory_allocated()
+        want = eval_graph_run(model, windows, fwd, ridx, False)
+        step = got["pipe"]._window_step
+        graphs = [g for g in step.graphs.graphs.values() if g is not None]
+        check(len(step.graphs.graphs) == 1 and len(graphs) == 1,
+              f"graph (16) eval {name}: {len(graphs)} captures")
+        for i, (a, b) in enumerate(zip(got["launches"], want["launches"])):
+            check(a == b == expect, f"graph (16) eval {name} window {i}: "
+                  f"launches {a} graphed, {b} eager, expected {expect}")
+        for k in total:
+            total[k] += sum(n[k] for n in got["launches"] + want["launches"])
+        differ = []
+        for i, (a, b) in enumerate(zip(got["host"], want["host"])):
+            check_metrics(b, f"graph (16) eval {name} window {i}")
+            differ += [f"window {i} {k}" for k in b
+                       if np.asarray(a[k]).tobytes()
+                       != np.asarray(b[k]).tobytes()]
+        tensors = {f"flow {i}": (a, b) for i, (a, b) in enumerate(
+            zip(got["flows"], want["flows"]))}
+        tensors.update({f"carry {i}": ab for i, ab in enumerate(
+            zip(got["carry"], want["carry"]))})
+        tensors.update({f"slot state {i}": ab for i, ab in enumerate(
+            zip(got["vstate"], want["vstate"]))})
+        differ += [k for k, (a, b) in tensors.items()
+                   if not torch.equal(bits(a), bits(b))]
+        check(not differ, f"graph (16) eval {name}: graphed and eager "
+              f"differ in {differ}")
+        print(f"graph (16) eval {name}: {EVAL_GRAPH_WINDOWS} DSEC windows "
+              f"graphed (captured while the reader thread copied) and eager "
+              f"bitwise equal: FWL, RSAT, AEE, flow_bw, flows, carry, "
+              f"{len(got['vstate'])} slot-state tensors (FWL "
+              f"{[f'{float(h['fwl']):.9g}' for h in want['host']]})")
+        (g,) = graphs
+        check(g.launches == expect, f"graph (16) eval {name}: the "
+              f"capture's launches {g.launches}, expected {expect}")
+        replayed = float(np.mean(got["secs"][2:])) * 1e3
+        eager = float(np.mean(want["secs"][1:])) * 1e3
+        print(f"graph (16) eval {name} on {gpu}: {replayed:.3f} ms a window "
+              f"replayed, {eager:.3f} eager (bf16, {RES[0]}x{RES[1]}, "
+              f"P = {PASSES}, each window synchronised); capture window "
+              f"{got['secs'][1] * 1e3:.1f} ms; the capture's launches "
+              f"{g.launches}; peak memory {g_peak / 2**30:.3f} GiB graphed")
+        del got, want, step, graphs, g, model
+        torch.cuda.empty_cache()
+    return total
 
 
 # ------------------------------------------------------------- E-RAFT phase

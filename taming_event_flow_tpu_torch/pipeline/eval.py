@@ -39,11 +39,20 @@ construction:
 The JAX pipeline's producer staging of windows is left out: ported and
 measured on the card, it gained nothing (ROADMAP.md).
 
+On the card the window step replays a CUDA graph from the second window of
+a bucket on (``training/graphed.py``; a sharded step stays eager): the
+slot state it hands back is the graph's own buffers, which the next window
+resets and rewrites, and the carry, flow and metrics are clones, so the
+reader thread may still hold them while the next window replays.
+
 While a ``torch.profiler`` profile is active, every ``SectionTimer``
 section is a span of the GT window it serves (its rid is
 :attr:`EvalPipeline.window_id`), and the pipeline counts ``h2d_bytes`` (each
 host array it uploads), ``slots`` (the event rows a pass or window stages)
-and ``events`` (those with a nonzero polarity; padding rows carry zero).
+and ``events`` (those with a nonzero polarity; padding rows carry zero). A
+replayed window step records ``eval.replay`` (and ``eval.capture``) inside
+``window_call``, and the counters ``eval_graph_replays`` and
+``eval_graph_captures``.
 """
 
 from __future__ import annotations
@@ -360,7 +369,8 @@ class EvalPipeline:
 
     def ensure_bucket(self, batch):
         """Fit a batch to the static event bucket: pad short batches; grow
-        the bucket (rebuilding the steps) when a batch overflows it. The
+        the bucket (rebuilding the steps, which drops the window step's
+        graphs: the new bucket warms up anew) when a batch overflows it. The
         decision reads the whole batch, which every rank streams, so every
         rank grows alike; a sharded bucket grows to a multiple of the
         ranks."""

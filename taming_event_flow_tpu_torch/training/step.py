@@ -2,12 +2,12 @@
 ``taming_event_flow_tpu/training/step.py``.
 
 The JAX builders return jitted pure programs; here they return plain
-closures that run eagerly, apart from the train step on the card, which
-replays its device work as a CUDA graph (:mod:`.graphed`). The model
-holds its own weights and the optimizer its own moments, so no ``params``
-or ``opt_state`` travels with each call: the train step updates both in
-place and returns a :class:`TrainState` of what does travel, the
-recurrent carry and the step count.
+closures that run eagerly, apart from the train step and the eval window
+step on the card, which replay their device work as CUDA graphs
+(:mod:`.graphed`). The model holds its own weights and the optimizer its
+own moments, so no ``params`` or ``opt_state`` travels with each call: the
+train step updates both in place and returns a :class:`TrainState` of what
+does travel, the recurrent carry and the step count.
 
 Training (:func:`make_train_step`): P passes with grad enabled, the
 contrast-max loss of ``LOSS_REGISTRY`` (Iterative or Linear) on the
@@ -41,6 +41,7 @@ rank's N / E events for the update.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -227,7 +228,19 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
                 loss.backward()
         return loss.detach(), tuple(c.detach() for c in carry)
 
-    graphs = graphed.StepGraphs(params, device_work)
+    def bind_grads(out):
+        # a replay binds every p.grad to the gradients of the graph that
+        # ran, so that an interleaved eager step or another graph cannot
+        # hand the optimizer stale ones (a capture starts with them None,
+        # so the graph owns its gradient buffers)
+        loss, carry, grads = out
+        for p, grad in zip(params, grads):
+            p.grad = grad
+        return graphed.clones((loss, carry))
+
+    graphs = graphed.StepGraphs(
+        "train", lambda carry, raw_window: device_work(carry, raw_window)
+        + ([p.grad for p in params],), bind_grads)
 
     def run(state: TrainState, raw_window, use_graphs: bool):
         if not model.training:
@@ -355,15 +368,28 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
     input derives from the unpacked raw coordinates. ``reset_first`` resets
     ``vstate`` before the first pass; ``extras(vstate, aux)`` adds a 4th
     return value; ``mesh`` as in :func:`make_eval_step`.
+
+    On the card, without a mesh, the window runs as a CUDA graph from an
+    input signature's second call on (:mod:`.graphed`: the first runs
+    eagerly); with a mesh (its reducers and shards run collectives) and on
+    the CPU it runs eagerly. ``window.eager`` runs a window eagerly on
+    either; a replay runs the kernels the eager window launches, so both
+    give the same bits. A replayed window updates the graph's own state
+    buffers and hands them back as ``vstate`` (the next window resets and
+    rewrites them), and clones of the carry, the flow and the ``extras``,
+    which a reader may still hold while the next window replays. While a
+    profile is active a replayed window records ``eval.replay`` (with
+    ``eval.capture`` before it on a capture) in place of the model's spans.
     """
     net = _eval_net(model, inference_dtype)
+    params = list(net.parameters())
     passes = val.cfg.passes
     if mesh is not None:
         from ..parallel.eval import shard_eval_window
 
     @torch.inference_mode()
-    def window(vstate, carry, xs, evs, pols, emasks, aux=None, raw=None,
-               ridx=None):
+    def body(vstate, carry, xs, evs, pols, emasks, aux=None, raw=None,
+             ridx=None):
         if reset_first:
             vstate = val.reset(vstate)
         if isinstance(evs, dict):
@@ -389,6 +415,25 @@ def make_eval_window_step(model, val, flow_scaling: float = 32.0,
             return vstate, carry, flow_fine, extras(vstate, aux)
         return vstate, carry, flow_fine
 
+    graphs = graphed.StepGraphs(
+        "eval", body, lambda out: (out[0],) + graphed.clones(out[1:]))
+
+    @torch.inference_mode()
+    def window(vstate, carry, xs, evs, pols, emasks, aux=None, raw=None,
+               ridx=None):
+        if mesh is None and graphed.uses_graphs(params):
+            if reset_first:
+                # the reset restarts the state's pass count: no graph keys
+                # on the count it came with
+                vstate = dataclasses.replace(vstate, pass_idx=0)
+            out = graphs(vstate, carry, xs, evs, pols, emasks, aux, raw,
+                         ridx)
+            if out is not None:
+                return out
+        return body(vstate, carry, xs, evs, pols, emasks, aux, raw, ridx)
+
+    window.eager = body
+    window.graphs = graphs
     return window
 
 

@@ -10,7 +10,9 @@ caller's): each span is a named range in the profiler's trace and an
 :class:`Entry` in a bounded in-memory record (:func:`recorded`),
 timed on the clock of the profiler's own events (the Unix clock,
 ``time.time_ns``), so that a reader can put it against the device's
-timeline. With the profiler off both cost one flag check."""
+timeline. With the profiler off a span costs one flag check, a counter
+one more thread-local read (:func:`taped_counts` keeps a CUDA graph's
+counters for its replays)."""
 
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ _record: collections.deque = collections.deque(maxlen=RECORD_LEN)
 class _Local(threading.local):
     def __init__(self):
         self.open = []  # this thread's open spans, innermost last
+        self.tape = None  # this thread's counters while taped
 
 
 _local = _Local()
@@ -149,7 +152,12 @@ def annotate(name: str, rid=None):
 
 def count(name: str, n) -> None:
     """Record the counter ``name`` at ``n`` inside the innermost open span
-    (its parent and rid) while a profile is active."""
+    (its parent and rid) while a profile is active; inside
+    :func:`taped_counts`, append ``(name, n)`` to its tape instead."""
+    tape = _local.tape
+    if tape is not None:
+        tape.append((name, n))
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     stack = _local.open
@@ -158,6 +166,19 @@ def count(name: str, n) -> None:
     _record.append(Entry(name, top.name if top is not None else None,
                          top.rid if top is not None else None,
                          threading.get_ident(), t, t, n))
+
+
+@contextlib.contextmanager
+def taped_counts():
+    """Collect this thread's counters as ``(name, n)`` in the list it
+    yields, profiled or not, instead of recording them: the counters of
+    work that runs later, as a CUDA graph's capture, which each replay
+    records again (:func:`count`)."""
+    outer, _local.tape = _local.tape, []
+    try:
+        yield _local.tape
+    finally:
+        _local.tape = outer
 
 
 def save_diff(fname: str = "git_diff.txt", run_id: Optional[str] = None):

@@ -28,7 +28,10 @@ from taming_event_flow_tpu_torch.training import (
     init_train_state,
     make_train_step,
 )
-from taming_event_flow_tpu_torch.utils.diagnostics import recorded
+from taming_event_flow_tpu_torch.utils.diagnostics import (
+    recorded,
+    taped_counts,
+)
 
 RES = (16, 16)
 PASSES = 2
@@ -41,9 +44,9 @@ PHASES = ["train.forward", "train.loss", "train.backward", "train.optimizer"]
 
 class FakeGraph:
     """A stand-in for ``graphed.CudaGraph``: ``capture`` runs ``fn`` and
-    keeps its result; ``replay`` runs it again, its launches uncounted (a
-    replay's are the capture's, which the step adds), and copies the new
-    result into the kept tensors."""
+    keeps its result; ``replay`` runs it again, its launches and counters
+    unrecorded (a replay's are the capture's, which the step adds), and
+    copies the new result into the kept tensors."""
 
     def __init__(self):
         self.replays = 0
@@ -58,7 +61,8 @@ class FakeGraph:
 
     def replay(self):
         before = dict(LAUNCHES)
-        new = self.fn()
+        with taped_counts():
+            new = self.fn()
         LAUNCHES.update(before)
         for kept, got in zip(_flat(self.out), _flat(new)):
             kept.copy_(got)
@@ -66,8 +70,10 @@ class FakeGraph:
 
 
 def _flat(out):
-    loss, carry, grads = out
-    return [loss, *carry, *grads]
+    """The tensors of an output tree, in order."""
+    leaves = []
+    graphed._flatten(out, leaves)
+    return [t for t in leaves if torch.is_tensor(t)]
 
 
 def _window(seed, n=32):
@@ -275,12 +281,13 @@ def test_loss_and_carry_alias_no_graph_buffer(warping, monkeypatch):
     state, _ = step(state, _window(0))
     state, loss = step(state, _window(1))
     (g,) = step.graphs.graphs.values()
-    ptrs = {t.data_ptr() for t in [g.loss, *g.carry_out, *g.carry]}
+    g_loss, g_carry, _ = g.out
+    ptrs = {t.data_ptr() for t in [g_loss, *g_carry, *_flat(g.inputs)]}
     assert loss.data_ptr() not in ptrs
     assert not ptrs & {c.data_ptr() for c in state.carry}
     kept = (loss.clone(), [c.clone() for c in state.carry])
     state2, loss2 = step(state, _window(2))  # rewrites the graph's outputs
-    assert not torch.equal(g.loss, kept[0])
+    assert not torch.equal(g_loss, kept[0])
     assert torch.equal(loss, kept[0])
     assert all(torch.equal(a, b) for a, b in zip(state.carry, kept[1]))
 
@@ -291,14 +298,14 @@ def test_grads_are_bound_to_the_graph_that_ran(warping, monkeypatch):
     params = list(model.parameters())
 
     def bound_to(g):
-        return all(p.grad is grad for p, grad in zip(params, g.grads))
+        return all(p.grad is grad for p, grad in zip(params, g.out[2]))
 
     for i in range(2):
         state, _ = step(state, _window(i, 32))
     (a,) = step.graphs.graphs.values()
     assert bound_to(a)
     state, _ = step.eager(state, _window(2, 32))  # an interleaved eager step
-    assert not any(p.grad is grad for p, grad in zip(params, a.grads))
+    assert not any(p.grad is grad for p, grad in zip(params, a.out[2]))
     for i in range(2):
         state, _ = step(state, _window(3 + i, 48))
     b = [g for g in step.graphs.graphs.values() if g is not None][-1]
