@@ -467,17 +467,17 @@ def sharded_check(device="cuda"):
         init_distributed,
         make_eval_mesh,
         make_event_mesh,
-        make_event_parallel_train_step,
         make_sharded_reducers,
         replicate,
         shard_eval_batch,
-        shard_state_2d,
+        shard_state,
         shard_val_state,
         shard_window_2d,
     )
     from taming_event_flow_tpu_torch.training import (
         build_optimizer,
         init_train_state,
+        make_train_step,
     )
 
     dev = resolve_device(device)
@@ -499,9 +499,9 @@ def sharded_check(device="cuda"):
             replicate(model, opt)
             cfg = LossConfig(res=res, passes_loss=passes, scales_loss=1,
                              iterative_mode="two")
-            step = make_event_parallel_train_step(
-                model, opt, cfg, mesh, "Iterative",
-                flow_scaling=FLOW_SCALING, res=res)
+            step = make_train_step(model, opt, cfg, "Iterative",
+                                   flow_scaling=FLOW_SCALING, res=res,
+                                   mesh=mesh)
             ev, pol = _synthetic_events(rng, (passes, batch, n_ev), res, dev)
             window = {
                 "net_input": torch.from_numpy(
@@ -511,7 +511,7 @@ def sharded_check(device="cuda"):
                 "pol_mask": pol,
                 "grad_mask": torch.ones(passes, batch, n_ev, 1, device=dev),
             }
-            state = shard_state_2d(
+            state = shard_state(
                 init_train_state(model, batch, *res, device=dev), mesh)
             _, loss = step(state, shard_window_2d(window, mesh))
             if not math.isfinite(float(loss)):

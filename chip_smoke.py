@@ -152,12 +152,12 @@ one NVIDIA card.
    the looped sweep on identical flows (the training-agreement
    tolerances), then through the training cell with its launches a step
    (``BATCHED_LAUNCHES``), ms/step and peak memory beside the default's
-   (``triangular_warp: false`` and ``warp_remat`` select the default's
-   table in the port). (c) The DSEC cell, unrectified
-   and rectified, on the plain, packed and u32 wires: FWL/RSAT/AEE across
-   wires within the kernel tolerance (bitwise or not, printed), launches a
-   window (2 row gathers on a rectified u32 one), bytes uploaded a window,
-   ms/pass in turns. (d) ``train_flow_torch.train`` with
+   (JAX's ``triangular_warp: false`` and ``warp_remat`` have no field in
+   the port, which builds the default's table). (c) The DSEC cell,
+   unrectified and rectified, on the plain, packed and u32 wires:
+   FWL/RSAT/AEE across wires within the kernel tolerance (bitwise or not,
+   printed), launches a window (2 row gathers on a rectified u32 one),
+   bytes uploaded a window. (d) ``train_flow_torch.train`` with
    ``runtime.packed_wire`` on and off: the first two step losses within
    ``WIRE_STEP_RTOL``, bytes uploaded a step.
 12. JAX run phase: a run as the JAX package's trainer leaves it, at full
@@ -221,12 +221,9 @@ one NVIDIA card.
    training CLI at step 7's values (one epoch) twice: every step's loss
    and the epoch loss bitwise equal. (e) ``EvalPipeline`` on 3 DSEC windows
    twice, unrectified and rectified: FWL, RSAT, AEE and ``flow_bw`` bitwise
-   equal. The launches of (b), (d) and (e) must be exact. (f) Printed, with
-   no limit: the splat's event and device ms at the three shapes, both
-   upsample backwards twice at a decoder's shape, and one profiled
-   training step's device time split into convolution backward, upsample
-   backward and splat, as the port runs it and with ``cudnn.deterministic``
-   off and ``F.interpolate``'s atomic backward. (g) The default and
+   equal. The launches of (b), (d) and (e) must be exact. (f) The
+   gather-form upsample's backward twice at a decoder's shape, bitwise
+   equal. (g) The default and
    transposed-decoder training cells of (b) twice more, in a child
    process once no other uses the card: on the free card (bitwise (b)'s
    run), then beside a filler tensor that leaves free only what that run
@@ -3098,27 +3095,24 @@ def epoch_losses(work, runid):
 
 def build_mesh_trainer(mesh):
     """``build_trainer``'s model and optimizer (seed 0) replicated over
-    ``mesh``, its event-parallel step and this rank's carry."""
+    ``mesh``, its train step under the mesh and this rank's carry."""
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.objectives import LossConfig
-    from taming_event_flow_tpu_torch.parallel import (
-        make_event_parallel_train_step,
-        replicate,
-        shard_state_2d,
-    )
+    from taming_event_flow_tpu_torch.parallel import replicate, shard_state
     from taming_event_flow_tpu_torch.training import (
         build_optimizer,
         init_train_state,
+        make_train_step,
     )
 
     model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
     opt = build_optimizer(TRAIN_OPT, model.parameters(),
                           clip_grad=TRAIN_CLIP, device=DEVICE)
     replicate(model, opt)
-    step = make_event_parallel_train_step(
-        model, opt, LossConfig(**TRAIN_LOSS), mesh,
-        flow_scaling=FLOW_SCALING, res=TRAIN_RES)
-    state = shard_state_2d(
+    step = make_train_step(model, opt, LossConfig(**TRAIN_LOSS),
+                           flow_scaling=FLOW_SCALING, res=TRAIN_RES,
+                           mesh=mesh)
+    state = shard_state(
         init_train_state(model, TRAIN_B, *TRAIN_RES, device=DEVICE), mesh)
     return model, step, state
 
@@ -3202,10 +3196,10 @@ def nccl_world_of_one(rank, world, url, seed):
         set_tf32,
     )
     from taming_event_flow_tpu_torch.parallel import (
-        event,
         init_distributed,
         make_event_mesh,
     )
+    from taming_event_flow_tpu_torch.training import step as train_step
 
     check(init_distributed({"coordinator": url, "num_processes": world,
                             "process_id": rank}, device="cuda:0"),
@@ -3222,7 +3216,8 @@ def nccl_world_of_one(rank, world, url, seed):
                for n, p in model_p.named_parameters()}
 
     identity = []
-    real = event.reduce_gradients
+    # the name the train step looks up
+    real = train_step.reduce_gradients
 
     def spy(params, mesh):
         before = [p.grad.clone() for p in params]
@@ -3230,7 +3225,7 @@ def nccl_world_of_one(rank, world, url, seed):
         identity.append(all(torch.equal(b, p.grad)
                             for b, p in zip(before, params)))
 
-    event.reduce_gradients = spy
+    train_step.reduce_gradients = spy
     try:
         reset_launches()
         mesh = make_event_mesh(1, 1)
@@ -3256,7 +3251,7 @@ def nccl_world_of_one(rank, world, url, seed):
                     param_bad += int(((p.detach() - want).abs() > tol).sum())
         out["launches"] = dict(LAUNCHES)
     finally:
-        event.reduce_gradients = real
+        train_step.reduce_gradients = real
     out.update(identity=identity, loss=loss_m, loss_plain=float(loss_p),
                grad_gap=grad_gap, param_bad=param_bad, secs=secs)
     return out
@@ -3277,9 +3272,9 @@ def par_cli_rank(seed, work, runid):
         parser = par_cli_parser(data_dir, seed, change, ranks=2)
         root = os.path.join(work, f"par_{tag}_2")
         os.makedirs(root, exist_ok=True)
-        steps = recording(train_flow_torch.make_event_parallel_train_step)
+        steps = recording(train_flow_torch.make_train_step)
         trained, wall, _ = run_train_cli(parser, root, {
-            "H5Loader": loader_cls, "make_event_parallel_train_step": steps})
+            "H5Loader": loader_cls, "make_train_step": steps})
         out[tag] = (trained, wall, steps.steps[0].losses)
     launches = launch_delta(before)
     data_dir, loader_cls = eval_cli_data(work, "par", par_eval_specs(seed),
@@ -3623,8 +3618,7 @@ BF16_FLOW_TOL = (1e-3, 3e-2)
 WIRES = {"plain": {"packed_wire": False},
          "packed": {"packed_wire": True, "u32_wire": False},
          "u32": {"packed_wire": True, "u32_wire": True}}
-WIRE_WINDOWS = 3  # DSEC windows per data kind; the first warms up
-WIRE_ROUNDS = 4  # timed passes over the windows per wire, in turns
+WIRE_WINDOWS = 3  # DSEC windows per data kind
 WIRE_STEP_RTOL = 1e-5  # the training CLI's first steps, packed vs plain
 
 
@@ -3799,15 +3793,13 @@ def wire_windows(rng):
     return out
 
 
-def wire_phase(rng, gpu):
+def wire_phase(rng):
     """(c): the DSEC cell on the plain, packed and u32 wires, unrectified
     and rectified: metrics across wires (within the kernel tolerance, and
-    whether they are bitwise is printed), launches a window (on the rectified u32 wire 2 row gathers:
-    the coordinate lookup and the count remap), bytes uploaded a window
-    and ms/pass timed in turns, beside the staging alone (host stacking,
-    packing and the upload, synchronised). Returns the launches."""
-    import torch
-
+    whether they are bitwise is printed), launches a window (on the
+    rectified u32 wire 2 row gathers: the coordinate lookup and the count
+    remap) and bytes uploaded a window. The benchmark's DSEC cells time
+    the wire the pipeline runs by default. Returns the launches."""
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.ops import (
         LAUNCHES,
@@ -3819,12 +3811,11 @@ def wire_phase(rng, gpu):
     model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
     total = {k: 0 for k in TRAIN_LAUNCHES}
     for kind, (windows, ridx, rect) in wire_windows(rng).items():
-        pipes, mets, secs = {}, {}, {w: [] for w in WIRES}
+        mets = {}
         for wire, runtime in WIRES.items():
             pipe = EvalPipeline(dict(DSEC_CONFIG, runtime=runtime), model,
                                 device=DEVICE)
             pipe.cur_ridx, pipe.cur_rect = ridx, rect
-            pipes[wire] = pipe
             reset_launches()
             mets[wire], _ = run_windows(pipe, windows)
             launches = dict(LAUNCHES)
@@ -3863,19 +3854,6 @@ def wire_phase(rng, gpu):
             print(f"options (c) {kind} {wire}: {nbytes} bytes uploaded a "
                   f"window; launches a window "
                   f"{ {k: v // WIRE_WINDOWS for k, v in launches.items()} }")
-        stage = {w: [] for w in WIRES}
-        padded = [[pipes["plain"].ensure_bucket(b) for b in passes]
-                  for passes in windows]
-        for _ in range(WIRE_ROUNDS):
-            for wire, pipe in pipes.items():
-                secs[wire] += run_windows(pipe, windows)[1]
-                for bufs in padded:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    pipe.stage_window(bufs)
-                    pipe.stage_pols(bufs)
-                    torch.cuda.synchronize()
-                    stage[wire].append(time.perf_counter() - t0)
         for wire in ("packed", "u32"):
             bitwise = True
             for i, (a, b) in enumerate(zip(mets[wire], mets["plain"])):
@@ -3889,15 +3867,6 @@ def wire_phase(rng, gpu):
             print(f"options (c) {kind}: {wire} wire's FWL/RSAT/AEE "
                   f"{'bitwise equal to' if bitwise else 'within rel 1e-5 of'}"
                   f" the plain wire's over {WIRE_WINDOWS} windows")
-        print(f"options (c) {kind} ms/pass (bf16, {len(secs['plain'])} warm "
-              f"windows each, in turns) on {gpu}: " + ", ".join(
-                  f"{w} {float(np.mean(v)) / PASSES * 1e3:.3f}"
-                  for w, v in secs.items()))
-        print(f"options (c) {kind} staging alone, ms a window (stack, pack "
-              f"and upload, synchronised; {len(stage['plain'])} each, in "
-              f"turns) on {gpu}: " + ", ".join(
-                  f"{w} {float(np.mean(v)) * 1e3:.3f} (min "
-                  f"{float(np.min(v)) * 1e3:.3f})" for w, v in stage.items()))
     return total
 
 
@@ -3977,7 +3946,7 @@ def options_phase(seed, work, train_data, gpu):
     add(launches)
     print(f"options (b) peak memory (GiB) on {gpu}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in peaks.items()))
-    add(wire_phase(rng, gpu))
+    add(wire_phase(rng))
     add(train_wire_ab(seed, work, train_data))
     print(f"phase 11 options and wires: {time.perf_counter() - t_phase:.1f} "
           f"s; launches {total}")
@@ -4856,8 +4825,7 @@ def nonfinite_splat(rng):
 
 def det_splats(rng):
     """(a): the splat at the DSEC, training and ``d_maps`` shapes, the
-    adversarial pile, non-finite values. Returns the inputs of the three
-    shapes for (f)."""
+    adversarial pile, non-finite values."""
     import torch
 
     lo, vals, _ = splat_inputs(rng, *window_points(rng, PASSES))
@@ -4875,9 +4843,6 @@ def det_splats(rng):
     splat_twice("d_maps", tloc, cot, TRAIN_RES)
     adversarial_splat(rng)
     nonfinite_splat(rng)
-    return {"DSEC rounded (C = 4)": (lo_r, vals, RES),
-            "training (C = 4)": (tloc, iwe, TRAIN_RES),
-            "d_maps (C = 2)": (tloc, cot, TRAIN_RES)}
 
 
 def det_train_run(model_change, warping, n_steps, seed):
@@ -5234,106 +5199,23 @@ def det_free_memory(seed, gpu, ref):
               f"{r['left'] / 2**30:.3f} GiB free changes {differ[:8]}")
 
 
-def step_split(averages):
-    """Device ms of a profiled training step: all of it, the convolutions'
-    backward, the upsampling's backward and the splat's kernels (the zero
-    fill of its scratch not included)."""
-    from torch.autograd import DeviceType
-
-    def dev(a):
-        return a.device_time_total
-
-    cpu = [a for a in averages if a.device_type == DeviceType.CPU]
-    kernels = [a for a in averages if a.device_type == DeviceType.CUDA
-               and not a.is_user_annotation]
-    return {
-        "device": sum(a.self_device_time_total for a in kernels) / 1e3,
-        "conv backward": sum(dev(a) for a in cpu
-                             if a.key == "aten::convolution_backward") / 1e3,
-        "upsample backward": sum(
-            dev(a) for a in cpu if a.key in (
-                "UpsampleBilinearFnBackward",
-                "aten::upsample_bilinear2d_backward")) / 1e3,
-        "splat": sum(a.self_device_time_total for a in kernels
-                     if "splat_" in a.key) / 1e3,
-    }
-
-
-def det_cost(shapes, gpu):
-    """(f): the splat's event and device ms at the three shapes, the two
-    upsample backwards at a decoder's shape (each twice: the gather's
-    bitwise), and one profiled training step's device time split into
-    convolution backward, upsample backward and splat, as the port runs it
-    and with two sources of run-to-run change put back
-    (``cudnn.deterministic`` off, ``F.interpolate``'s atomic backward).
-    Printed, with no limit."""
+def det_upsample():
+    """(f): the gather-form upsample's backward (the decoders' and the
+    per-scale upsampling's) twice at a decoder's shape: bitwise equal."""
     import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from taming_event_flow_tpu_torch.models import blocks
-    from taming_event_flow_tpu_torch.models import model as model_mod
-    from taming_event_flow_tpu_torch.ops import cuda_warp
 
-    for tag, (loc, values, res) in shapes.items():
-        call = lambda: cuda_warp.splat_bilinear(loc, values, res)  # noqa: E731
-        print(f"determinism (f) splat {tag} on {gpu}: event "
-              f"{time_ms(call):.5f} ms, device {device_ms(call):.5f} ms")
-
-    def atomic_upsample(x, factor):
-        return F.interpolate(x, scale_factor=factor, mode="bilinear",
-                             align_corners=False)
-
-    # the two upsample backwards at a decoder's shape, each twice
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     x = torch.randn(TRAIN_B, 128, 32, 32, device=DEVICE, generator=gen,
                     requires_grad=True)
     g = torch.randn(TRAIN_B, 128, 64, 64, device=DEVICE, generator=gen)
-    for tag, up in (("F.interpolate's", atomic_upsample),
-                    ("the gather", blocks.upsample_bilinear)):
-        def back():
-            return torch.autograd.grad(up(x, 2), x, g)[0]
-
-        a, b = back(), back()
-        torch.cuda.synchronize()
-        same = torch.equal(bits(a), bits(b))
-        check(same or up is atomic_upsample, "determinism (f): the upsample "
-              "backward differs between two calls")
-        apart = ("bitwise equal" if same else
-                 f"differ by up to {float((a - b).abs().max()):.3e}")
-        print(f"determinism (f) {tag} upsample backward at [8, 128, 32, 32] "
-              f"x 2 on {gpu}: two calls {apart}; forward + backward "
-              f"{device_ms(back):.5f} ms of device time")
-
-    _, step, state = build_trainer(TRAIN_B, DEVICE)
-    window = train_window(np.random.default_rng(14), TRAIN_B)
-    state, _ = step(state, window)
-    flags = torch.backends.cudnn
-    ours = blocks.upsample_bilinear
-    variants = (("the port (deterministic)", True, ours),
-                ("cudnn.deterministic off, F.interpolate's backward", False,
-                 atomic_upsample))
-    split = {}
-    try:
-        for tag, det, up in variants:
-            flags.deterministic = det
-            blocks.upsample_bilinear = model_mod.upsample_bilinear = up
-            # eager: the split reads the aten ops a replay does not
-            # dispatch, and a graph would keep the flags of its capture
-            state, _ = step.eager(state, window)  # warm: a new algorithm
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                state, _ = step.eager(state, window)
-                torch.cuda.synchronize()
-            split[tag] = step_split(prof.key_averages())
-            print(f"determinism (f) one training step on {gpu}, {tag}: "
-                  + ", ".join(f"{k} {v:.3f} ms"
-                              for k, v in split[tag].items()))
-    finally:
-        flags.deterministic = True
-        blocks.upsample_bilinear = model_mod.upsample_bilinear = ours
-    return split
+    a, b = (torch.autograd.grad(blocks.upsample_bilinear(x, 2), x, g)[0]
+            for _ in range(2))
+    check(torch.equal(bits(a), bits(b)), "determinism (f): the upsample "
+          "backward differs between two calls")
+    print("determinism (f) the gather upsample backward at [8, 128, 32, 32] "
+          "x 2: two calls bitwise equal")
 
 
 def determinism_phase(seed, work, train_data, gpu):
@@ -5348,9 +5230,9 @@ def determinism_phase(seed, work, train_data, gpu):
     The training CLI twice. (e) The DSEC eval pipeline twice, unrectified
     and rectified. (g) The default and transposed cells of (b) on the
     free card and beside a filler tensor, in a third child once the others
-    have ended (:func:`det_free_memory`). (f) Costs, printed. The first
-    two children start first and run beside (a)-(e). Returns this
-    process's launches of (b), (d) and (e)."""
+    have ended (:func:`det_free_memory`). (f) The upsample's backward
+    twice. The first two children start first and run beside (a)-(e).
+    Returns this process's launches of (b), (d) and (e)."""
     import torch
 
     from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
@@ -5367,7 +5249,7 @@ def determinism_phase(seed, work, train_data, gpu):
                            {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
     trainer = start_child(f"det_train_child({seed})")
     try:
-        shapes = det_splats(rng)
+        det_splats(rng)
         lap("(a)")
         reset_launches()
         expect, digests, losses = det_training(seed)
@@ -5396,8 +5278,7 @@ def determinism_phase(seed, work, train_data, gpu):
     lap("(c) wait")
     det_free_memory(seed, gpu, digests)
     lap("(g)")
-    det_cost(shapes, gpu)
-    torch.cuda.empty_cache()
+    det_upsample()
     lap("(f)")
     print(f"phase 14 determinism: {time.perf_counter() - t_phase:.1f} s on "
           f"{gpu} (" + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())

@@ -25,10 +25,10 @@ class LossConfig(NamedTuple):
 
     Of the JAX package's formulation knobs, ``batched_sweep`` selects the
     batched deblurring sweep (:mod:`.iterative`). ``triangular_warp``,
-    ``warp_remat`` and ``scan_unroll`` parse and change nothing: they shape
-    XLA's scans, and the port's warp steps are Python loops that build the
+    ``warp_remat`` and ``scan_unroll`` have no field: they shape XLA's
+    scans, and the port's warp steps are Python loops that build the
     triangular table (the scan table's values) and keep no residuals for
-    remat to drop.
+    remat to drop. Their config keys parse (:mod:`..configs.parser`).
     """
 
     res: Tuple[int, int]
@@ -40,10 +40,7 @@ class LossConfig(NamedTuple):
     border_compensation: bool = True
     flow_spat_smooth_weight: Optional[float] = None
     flow_temp_smooth_weight: Optional[float] = None
-    warp_remat: bool = False
-    scan_unroll: int = 1
     batched_sweep: bool = False
-    triangular_warp: bool = True
 
     @property
     def passes_list(self) -> Sequence[int]:

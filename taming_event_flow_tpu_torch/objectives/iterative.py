@@ -6,12 +6,12 @@ The port builds the JAX package's default warp table, the triangular one
 (per timeline step, only the windows that have joined are warped), and
 runs either deblurring sweep: the looped one, one 4-channel IWE splat per
 tref, or the batched one (``batched_sweep``: one splat per (scale, window)
-over ``[T*B]`` lanes). ``triangular_warp=False`` and ``warp_remat`` parse
-and select that same table, as ``scan_unroll`` parses and does nothing:
-the scan table exists in JAX for ``lax.scan`` and computes the same table
-(its locations within 1e-5, its masks exactly), and eager PyTorch keeps no
-per-step residuals for remat to drop (a step's saved tensors are the
-table entries the loss reads anyway).
+over ``[T*B]`` lanes). The JAX package's ``triangular_warp``,
+``warp_remat`` and ``scan_unroll`` shape its ``lax.scan`` and have no
+field here (the config parser still reads their keys): the scan table
+computes the triangular table (its locations within 1e-5, its masks
+exactly), and eager PyTorch keeps no per-step residuals for remat to drop
+(a step's saved tensors are the table entries the loss reads anyway).
 Grad and detached events share one tensor with a per-event ``grad_mask``:
 recorded table locations pass through ``where(grad_mask > 0, loc,
 loc.detach())``, and every mask the warp produces is detached, so gradients
@@ -179,7 +179,8 @@ def iterative_loss(flows, event_list, pol_mask, grad_mask, cfg: LossConfig,
         every IWE merges its partial splats over it, and the loss is
         ``pmean``'d over it. Every rank of the group then holds the global
         loss, and the mean routes one unit of cotangent through each
-        rank's splats (see ``parallel.event.reduce_gradients``).
+        rank's splats; the train step under a mesh then reduces the
+        gradients (``training.step.make_train_step``, ``mesh=``).
     :return: scalar loss.
     """
     p, s_scales = flows.shape[0], flows.shape[1]

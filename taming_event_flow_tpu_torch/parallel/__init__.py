@@ -25,9 +25,7 @@ from .eval import (
 )
 from .event import (
     EVENT_AXIS,
-    make_event_parallel_train_step,
     reduce_gradients,
-    shard_state_2d,
     shard_window_2d,
 )
 from .mesh import (
@@ -61,9 +59,7 @@ __all__ = [
     "shard_val_state",
     "EVENT_AXIS",
     "make_event_mesh",
-    "make_event_parallel_train_step",
     "reduce_gradients",
-    "shard_state_2d",
     "shard_window_2d",
     "DATA_AXIS",
     "Mesh",

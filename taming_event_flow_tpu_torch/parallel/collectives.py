@@ -5,10 +5,10 @@ JAX transposes ``psum`` to ``psum``; :func:`all_reduce_sum` does the same:
 its backward all-reduces the cotangent over the group of its forward. So a
 loss that every rank of an event group computes from the merged partial
 IWEs hands each rank's splat an E-fold cotangent, and the gradients come
-out E times each shard's contribution: the train step sums them over the
-data group and averages them over the event group
-(:func:`..event.reduce_gradients`), as ``parallel/event.py`` of the JAX
-package does.
+out E times each shard's contribution: the train step under a mesh
+(``training.step.make_train_step``) sums them over the data group and
+averages them over the event group (:func:`..event.reduce_gradients`), as
+``parallel/event.py`` of the JAX package does.
 
 Every rank of a group must call every collective of that group in the same
 order, backward included; the loss and validation code paths are identical

@@ -1,6 +1,8 @@
 """Event-axis parallelism of the contrast-max train step on the 2-D
 ``(data, event)`` mesh: the counterpart of
-``taming_event_flow_tpu/parallel/event.py``.
+``taming_event_flow_tpu/parallel/event.py``. The step itself is
+``training.step.make_train_step`` with ``mesh=``; this module holds what it
+needs of the mesh: the window's shards and the gradients' reduction.
 
 The IWE splat is a sum over events, so each lane's event list splits into
 N / E chunks, one per rank of an event group: each rank splats its chunk
@@ -21,12 +23,12 @@ masks, so an uneven share of real events between ranks changes nothing.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, shard_state, take
+from .mesh import Mesh, take
 
 EVENT_AXIS = "event"
 
@@ -57,12 +59,6 @@ def shard_window_2d(window: Dict, mesh: Mesh,
     return out
 
 
-def shard_state_2d(state, mesh: Mesh):
-    """This rank's lanes of the carry; the parameters and the optimizer
-    state are replicated (:func:`.mesh.replicate`)."""
-    return shard_state(state, mesh)
-
-
 def reduce_gradients(params, mesh: Mesh) -> None:
     """Sum the parameters' gradients over the data axis and average them
     over the event axis, in place: one all-reduce of the flattened
@@ -87,57 +83,3 @@ def reduce_gradients(params, mesh: Mesh) -> None:
         p.grad = flat[offset:offset + g.numel()].view_as(g)
         offset += g.numel()
 
-
-def make_event_parallel_train_step(
-    model,
-    optimizer,
-    loss_cfg,
-    mesh: Mesh,
-    warping: str = "Iterative",
-    flow_scaling: float = 32.0,
-    res: Optional[tuple] = None,
-) -> Callable:
-    """The window step over a ``(data, event)`` mesh, with the contract of
-    :func:`..training.step.make_train_step`; call it with this rank's part
-    of the window (:func:`shard_window_2d`) and of the state
-    (:func:`shard_state_2d`), after the model and optimizer were
-    replicated (:func:`.mesh.replicate`).
-
-    In order: the P passes (replicated over the event axis), the loss with
-    the event group as its ``event_axis``, the backward, the gradients'
-    data sum and event mean (:func:`reduce_gradients`), then the clip and
-    the optimizer on the reduced gradients (the clip sees the global norm).
-    The loss comes back summed over the data axis, the same on every rank.
-    ``n_event = 1`` is plain data parallelism.
-    """
-    # imported here: the losses import this package's collectives
-    from ..objectives import LOSS_REGISTRY
-    from ..training.step import TrainState, run_passes, unpack_window
-
-    loss_fn = LOSS_REGISTRY[warping]
-    params = [p for p in model.parameters() if p.requires_grad]
-
-    def step(state: TrainState, raw_window: Dict[str, torch.Tensor]):
-        if mesh.n_event > 1 and "net_input" not in raw_window:
-            # derived from this rank's events alone it would be wrong
-            raise ValueError("an event-sharded window needs its net_input")
-        if not model.training:
-            model.train()
-        window = unpack_window(raw_window, res=res)
-        for p in params:
-            p.grad = None
-        with torch.enable_grad():
-            flows, carry = run_passes(model, state.carry,
-                                      window["net_input"], flow_scaling)
-            loss = loss_fn(flows, window["event_list"], window["pol_mask"],
-                           window["grad_mask"], loss_cfg,
-                           event_axis=mesh.event_group)
-            loss.backward()
-        reduce_gradients(params, mesh)
-        optimizer.step()
-        loss = loss.detach().clone()
-        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=mesh.data_group)
-        carry = tuple(c.detach() for c in carry)
-        return TrainState(carry, state.step + 1), loss
-
-    return step

@@ -109,7 +109,7 @@ def make_event_mesh(n_data: int, n_event: int) -> Mesh:
             f"need {need} ranks for a {n_data}x{n_event} (data x event) "
             f"mesh, the world holds {have}: launch that many processes "
             "(torchrun --nproc_per_node); multi-card scaling is unmeasured, "
-            "see ROADMAP.md item 7")
+            "see ROADMAP.md section 2, item 8")
     if have > need:
         raise ValueError(
             f"a {n_data}x{n_event} (data x event) mesh takes {need} ranks, "

@@ -24,6 +24,11 @@ where a layer computes differently in the two (E-RAFT's BatchNorm,
 ``models/eraft.py``). Switching a mode walks every module (a quarter of a
 millisecond for RecEVFlowNet), so neither step switches one on every call.
 
+With a ``(data, event)`` mesh (``parallel/``) the same train step runs on
+this rank's lanes and events: the loss merges its IWEs over the event
+group, and the gradients are reduced over the mesh before the optimizer.
+A step under a mesh runs eagerly, as the eval steps under one do.
+
 Eval (:func:`make_eval_step`, :func:`make_eval_window_step`) runs under
 ``torch.inference_mode()``. ``inference_dtype`` (e.g. ``torch.bfloat16``)
 is the JAX package's contract (``step.py:225-235, 349-358``): the model,
@@ -46,9 +51,11 @@ import itertools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..objectives import LOSS_REGISTRY, LossConfig
 from ..ops.encodings import derive_count_input, unpack_event_wire
+from ..parallel.event import reduce_gradients
 from ..utils.device import resolve_device
 from ..utils.diagnostics import annotate
 from . import graphed
@@ -176,7 +183,7 @@ def run_passes(model, carry, xs, flow_scaling: float = 32.0):
 
 def make_train_step(model, optimizer, loss_cfg: LossConfig,
                     warping: str = "Iterative", flow_scaling: float = 32.0,
-                    res: Optional[tuple] = None) -> Callable:
+                    res: Optional[tuple] = None, *, mesh=None) -> Callable:
     """Build the window step (``step.py:100-152``). Returned signature::
 
         new_state, loss = step(state, window)
@@ -197,19 +204,35 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
     runs eagerly. ``step.eager`` runs a step eagerly on either; a replay
     runs the kernels the eager step launches, so both give the same bits.
 
+    With a ``(data, event)`` ``mesh`` (``parallel.make_event_mesh``) the
+    step takes this rank's part of the window
+    (``parallel.shard_window_2d``) and of the state
+    (``parallel.shard_state``), after the model and optimizer were
+    replicated (``parallel.replicate``). The passes run replicated over the
+    event axis, so an event-sharded window must carry its ``net_input``;
+    the loss merges its IWEs over the event group (its ``event_axis``);
+    after the backward the gradients are summed over the data axis and
+    averaged over the event axis (``parallel.event.reduce_gradients``), so
+    the clip and the optimizer see the reduced ones; the loss comes back
+    summed over the data axis, the same on every rank. ``n_event = 1`` is
+    plain data parallelism. A step under a mesh runs eagerly (its
+    collectives stay out of any graph), as the eval steps under one do.
+
     Each call puts a model whose mode flag reads eval back in training mode
     first (``model.train()``; a submodule the caller set to eval inside a
     model in training mode stays so).
 
     While a profile is active the step records the span ``train.step``
     (rid: the state's step count) with the children ``train.forward``
-    (unpack and the P passes), ``train.loss``, ``train.backward`` and
-    ``train.optimizer`` (the clip and the update) when it runs eagerly, and
-    ``train.replay`` (with ``train.capture`` before it on a capture) and
-    ``train.optimizer`` when it replays.
+    (unpack and the P passes), ``train.loss``, ``train.backward`` (with a
+    mesh, the gradients' reduction too) and ``train.optimizer`` (the clip
+    and the update) when it runs eagerly, and ``train.replay`` (with
+    ``train.capture`` before it on a capture) and ``train.optimizer`` when
+    it replays.
     """
     loss_fn = LOSS_REGISTRY[warping]
     params = [p for p in model.parameters() if p.requires_grad]
+    event_axis = None if mesh is None else mesh.event_group
 
     def device_work(carry, raw_window):
         with annotate("train.forward"):
@@ -223,9 +246,11 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
             with annotate("train.loss"):
                 loss = loss_fn(flows, window["event_list"],
                                window["pol_mask"], window["grad_mask"],
-                               loss_cfg)
+                               loss_cfg, event_axis=event_axis)
             with annotate("train.backward"):
                 loss.backward()
+                if mesh is not None:
+                    reduce_gradients(params, mesh)
         return loss.detach(), tuple(c.detach() for c in carry)
 
     def bind_grads(out):
@@ -243,6 +268,10 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
         + ([p.grad for p in params],), bind_grads)
 
     def run(state: TrainState, raw_window, use_graphs: bool):
+        if mesh is not None and mesh.n_event > 1 \
+                and "net_input" not in raw_window:
+            # derived from this rank's events alone it would be wrong
+            raise ValueError("an event-sharded window needs its net_input")
         if not model.training:
             model.train()
         with annotate("train.step", rid=state.step):
@@ -252,10 +281,13 @@ def make_train_step(model, optimizer, loss_cfg: LossConfig,
             with annotate("train.optimizer"):
                 optimizer.step()
         loss, carry = out
+        if mesh is not None:
+            dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=mesh.data_group)
         return TrainState(carry, state.step + 1), loss
 
     def step(state: TrainState, raw_window: Dict[str, torch.Tensor]):
-        return run(state, raw_window, graphed.uses_graphs(params))
+        return run(state, raw_window,
+                   mesh is None and graphed.uses_graphs(params))
 
     step.eager = lambda state, raw_window: run(state, raw_window, False)
     step.graphs = graphs

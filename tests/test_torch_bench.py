@@ -51,6 +51,10 @@ from taming_event_flow_tpu_torch.models import (
 )
 from taming_event_flow_tpu_torch.ops import cuda_warp
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"base_channels": 8, "num_encoders": 2}
 TRAIN_RES, TRAIN_P, TRAIN_N = (32, 32), 2, 256

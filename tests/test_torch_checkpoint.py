@@ -51,6 +51,10 @@ from taming_event_flow_tpu_torch.tracking import flax_msgpack, load_checkpoint
 from taming_event_flow_tpu_torch.training import build_optimizer
 from taming_event_flow_tpu_torch.utils import annotate, profile_trace
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (32, 32)
 TINY = {"name": "RecEVFlowNet", "base_channels": 8, "num_encoders": 2,

@@ -53,6 +53,9 @@ from taming_event_flow_tpu_torch.training import (
 )
 
 from .test_training import P_PASSES, RES, make_window
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FACTORS = (2, 4, 8)
 SIZES = ((5, 7), (4, 6), (1, 3))  # odd, even, a single row

@@ -32,6 +32,7 @@ from taming_event_flow_tpu_torch.training import (build_optimizer,
 from taming_event_flow_tpu_torch.utils import diagnostics
 
 from . import reference_eraft as ref
+from .torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, "benchmark")
@@ -41,6 +42,8 @@ for _p in (ROOT, BENCH_DIR):
 
 from harness import compare, events  # noqa: E402
 from reference.losses import LOSSES  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CFG = {"name": "ERAFT", "num_bins": 2, "iters": 3, "corr_levels": 4,
        "corr_radius": 4, "hidden_dim": 128, "context_dim": 128,
@@ -53,17 +56,6 @@ LOSS = LossConfig(res=(128, 128), passes_loss=2, scales_loss=1,
                   iterative_mode="two")
 REF_LOSS = {"res": (128, 128), "passes_loss": 2, "scales_loss": 1,
             "iterative_mode": "two"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: E-RAFT's full-width convolutions
-    take ~1.3x longer on one thread alone, but many times longer with every
-    thread while the suite's other processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _model(seed=1, **over):

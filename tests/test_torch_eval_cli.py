@@ -37,6 +37,10 @@ from taming_event_flow_tpu_torch.configs import YAMLParser
 from taming_event_flow_tpu_torch.data import write_synthetic_h5
 from taming_event_flow_tpu_torch.models import flax_params_to_state_dict
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (32, 32)
 RTOL, ATOL = 2e-3, 2e-4  # the pipeline-parity tolerance

@@ -36,6 +36,7 @@ from taming_event_flow_tpu_torch.training.step import make_eval_window_step
 from taming_event_flow_tpu_torch.utils.diagnostics import recorded
 
 from .test_torch_graphed_step import FakeGraph, _flat
+from .torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, "benchmark")
@@ -43,6 +44,8 @@ if BENCH_DIR not in sys.path:
     sys.path.insert(0, BENCH_DIR)
 
 from harness import events  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RES = (32, 32)
 PASSES = 2
@@ -58,16 +61,6 @@ MODELS = {
 }
 WIRES = {"f32": {"u32_wire": False}, "u32": {}}
 SPLATS = 2  # launches the counted window metrics add to LAUNCHES a window
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: some CPU kernels sum in an order that changes
-    with the threads' timing, so two eager runs differ in the last bits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _sequence(seed=3, pool=3):

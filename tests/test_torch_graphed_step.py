@@ -13,6 +13,7 @@ graph's replay rewrites its static outputs. Tiny sizes; nothing timed."""
 
 import copy
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -32,6 +33,10 @@ from taming_event_flow_tpu_torch.utils.diagnostics import (
     recorded,
     taped_counts,
 )
+
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RES = (16, 16)
 PASSES = 2
@@ -155,18 +160,8 @@ def test_first_call_eager_second_captures_later_replay(warping,
     assert _graphs(step) == [g] and g.replays == 4 and state.step == 5
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: some CPU kernels sum in an order that changes
-    with the threads' timing, so two eager runs differ in the last bits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("warping", WARPINGS)
-def test_graphed_steps_equal_eager_ones(warping, monkeypatch, one_thread):
+def test_graphed_steps_equal_eager_ones(warping, monkeypatch):
     torch.manual_seed(0)
     model = build_model(TINY, num_bins=2, device="cpu")
     twin = copy.deepcopy(model)
@@ -253,8 +248,7 @@ def test_interleaved_signatures_capture_a_bounded_number_of_times(
 
 
 @pytest.mark.parametrize("warping", WARPINGS)
-def test_interleaved_graphed_steps_equal_eager_ones(warping, monkeypatch,
-                                                    one_thread):
+def test_interleaved_graphed_steps_equal_eager_ones(warping, monkeypatch):
     torch.manual_seed(0)
     model = build_model(TINY, num_bins=2, device="cpu")
     twin = copy.deepcopy(model)
@@ -353,6 +347,64 @@ def test_spans_and_counters_of_a_replayed_step(warping, monkeypatch):
     assert [counted(s, "train_graph_replays") for s in seen] == [0, 1, 1, 1]
     top = [e for e in seen[3] if e.name == "train.step"]
     assert [(e.parent, e.rid) for e in top] == [(None, 3)]
+
+
+@pytest.mark.parametrize("warping", WARPINGS)
+def test_a_mesh_train_step_stays_eager(warping, monkeypatch):
+    """A train step under a mesh (its loss, gradients and loss sum run
+    collectives) runs eagerly, every call, on the card's path too, with
+    the spans of an eager step; the collectives, stood in for by a world
+    of one, run in the step's order: the loss's over the event group, the
+    gradients' over the world before the optimizer, the loss's sum over
+    the data group last. An event-sharded window without ``net_input``
+    is refused."""
+    calls = []
+
+    def all_reduce(t, op=None, group=None, async_op=False):
+        calls.append(group)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 1)
+    monkeypatch.setattr(graphed, "uses_graphs", lambda params: True)
+
+    def no_graph(*args, **kwargs):
+        raise AssertionError("a mesh step reached its graphs")
+
+    monkeypatch.setattr(graphed.StepGraphs, "__call__", no_graph)
+    torch.manual_seed(0)
+    model = build_model(TINY, num_bins=2, device="cpu")
+    opt = build_optimizer({"name": "Adam", "lr": 1e-3}, model.parameters(),
+                          clip_grad=100.0, device="cpu")
+    opt.register_step_pre_hook(lambda o, a, k: calls.append("optimizer"))
+    groups = {"event_group": "event", "data_group": "data"}
+    mesh = SimpleNamespace(n_data=1, n_event=1, **groups)
+    step = make_train_step(model, opt, LossConfig(res=RES,
+                                                  passes_loss=PASSES),
+                           warping, flow_scaling=4.0, res=RES, mesh=mesh)
+    state = init_train_state(model, 1, RES[0], RES[1], device="cpu")
+    for i in range(3):
+        calls.clear()
+        t0 = time.time_ns()
+        with profile(activities=[ProfilerActivity.CPU]):
+            state, loss = step(state, _window(i))
+        entries = sorted((e for e in recorded() if e.start_ns >= t0),
+                         key=lambda e: e.start_ns)
+        assert [e.name for e in entries
+                if e.parent == "train.step" and e.value is None] == PHASES
+        assert [(e.parent, e.rid) for e in entries
+                if e.name == "train.step"] == [(None, i)]
+        n_event = calls.index(None)
+        assert n_event > 0 and set(calls[:n_event]) == {"event"}
+        assert calls[n_event:] == [None, "optimizer", "data"]
+    assert torch.isfinite(loss) and state.step == 3
+    assert not step.graphs.graphs
+    sharded = make_train_step(model, opt, LossConfig(res=RES,
+                                                     passes_loss=PASSES),
+                              warping, res=RES,
+                              mesh=SimpleNamespace(n_event=2, **groups))
+    with pytest.raises(ValueError, match="net_input"):
+        sharded(state, _window(3))
 
 
 def test_the_signature_reads_shapes_dtypes_and_precision():

@@ -22,6 +22,9 @@ from taming_event_flow_tpu_torch import objectives as tobj
 from taming_event_flow_tpu_torch.metrics import validation as tval
 
 from .test_torch_objectives import value_and_grad, world_of_one
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RES = (8, 10)
 N_GRAD, N_DET = 12, 6

@@ -19,6 +19,10 @@ from taming_event_flow_tpu_torch.models import (
 )
 from taming_event_flow_tpu_torch.training import make_forward_fn, reset_carry
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RES = (36, 44)  # not a multiple of 16: exercises the top-left padding
 CFG = {"name": "RecEVFlowNet", "base_channels": 8, "num_encoders": 2,
        "final_w_scale": 0.01}

@@ -27,6 +27,10 @@ from taming_event_flow_tpu_torch.parallel import (
     make_event_mesh,
 )
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RES = (8, 10)
 B = 1
 N_GRAD = 12
@@ -34,6 +38,15 @@ N_DET = 6
 N = N_GRAD + N_DET
 S = 2  # flow scales
 RTOL = 1e-4
+# the JAX package's scan knobs: the port has no field for them and runs
+# its one loss, which the JAX loss with any of them must match
+JAX_ONLY = ("triangular_warp", "warp_remat", "scan_unroll")
+
+
+def port_cfg(**cfg_kw):
+    """The port's ``LossConfig`` of the JAX config ``cfg_kw``."""
+    return tobj.LossConfig(res=RES, **{k: v for k, v in cfg_kw.items()
+                                       if k not in JAX_ONLY})
 
 
 def make_inputs(rng, passes, b=B):
@@ -67,7 +80,7 @@ def both(flows, events, pol, grad_mask, **cfg_kw):
     tv = tobj.iterative_loss(tf, torch.from_numpy(events),
                              torch.from_numpy(pol),
                              torch.from_numpy(grad_mask),
-                             tobj.LossConfig(res=RES, **cfg_kw))
+                             port_cfg(**cfg_kw))
     tv.backward()
     return (float(jv), np.asarray(jg)), (float(tv.detach()), tf.grad.numpy())
 
@@ -213,11 +226,12 @@ def value_and_grad(loss_fn, flows, inputs, cfg, **kw):
 def test_unported_knobs_raise(rng, tmp_path, knob):
     """The three knobs that once raised here (the scan table,
     ``batched_sweep``, ``warp_remat``) now match the JAX loss with the same
-    knob; an ``event_axis`` over a world of one rank gives the loss and
-    flow gradient of ``None``, bit for bit (its all-reduces are the
-    identity), in both losses."""
+    knob (the port's one loss where it has no such field); an
+    ``event_axis`` over a world of one rank gives the loss and flow
+    gradient of ``None``, bit for bit (its all-reduces are the identity),
+    in both losses."""
     flows, events, pol, gm = make_inputs(rng, 2)
-    cfg = tobj.LossConfig(res=RES, passes_loss=2, **knob)
+    cfg = port_cfg(passes_loss=2, **knob)
     t = torch.from_numpy
     assert_match(*both(flows, events, pol, gm, passes_loss=2, **knob))
     # the Linear loss runs (it has none of these knobs)
@@ -235,9 +249,13 @@ def test_unported_knobs_raise(rng, tmp_path, knob):
 
 
 def test_loss_config_fields_match_jax():
-    assert tobj.LossConfig._fields == jobj.LossConfig._fields
-    assert (tobj.LossConfig(res=RES)._replace(res=None)
-            == jobj.LossConfig(res=RES)._replace(res=None))
+    """The JAX fields in the JAX order and with its defaults, less the
+    scan knobs the port has no use for."""
+    shared = tuple(f for f in jobj.LossConfig._fields if f not in JAX_ONLY)
+    assert tobj.LossConfig._fields == shared
+    jdefaults = jobj.LossConfig(res=RES)
+    assert (tobj.LossConfig(res=RES)
+            == tuple(getattr(jdefaults, f) for f in shared))
     cfg = tobj.LossConfig(res=RES, passes_loss=8, scales_loss=3,
                           iterative_mode="four")
     jcfg = jobj.LossConfig(res=RES, passes_loss=8, scales_loss=3,

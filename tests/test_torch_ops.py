@@ -19,6 +19,10 @@ from taming_event_flow_tpu.ops import pallas_warp as jpallas
 from taming_event_flow_tpu.ops import warp as jwarp
 from taming_event_flow_tpu_torch import ops as tops
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 SHAPES = [
     ((8, 10), 32),  # tiny
     ((140, 200), 256),  # > 16384 px: the JAX XLA path is the 4-tap scatter

@@ -1,8 +1,8 @@
 """The registry options the port took over last, against the JAX package on
 the same numpy inputs: ``norm: IN`` and ``model.compute_dtype`` in the
-models, and the Iterative loss's ``batched_sweep``, ``triangular_warp:
-false`` and ``warp_remat`` (the last two select the triangular table in
-the port); then ``norm: IN`` through both CLIs.
+models, and the Iterative loss's ``batched_sweep``, and JAX's
+``triangular_warp: false`` and ``warp_remat`` against the port's one loss
+(it has no field for either); then ``norm: IN`` through both CLIs.
 
 Tolerances:
 
@@ -20,8 +20,8 @@ Tolerances:
   ``tests/test_torch_objectives.py`` (rtol 1e-4 on the value and on the
   flow gradient, with an atol of 1e-4 x max |gradient|); JAX's scan table
   against the port's triangular one, masks exactly, locations to 1e-5
-  (the triangular table's test); ``warp_remat`` and a world-of-one
-  ``event_axis`` bitwise.
+  (the triangular table's test); a world-of-one ``event_axis``
+  bitwise.
 """
 
 import argparse
@@ -53,6 +53,7 @@ from taming_event_flow_tpu_torch.models import (
 )
 
 from .test_torch_objectives import RES, assert_match, make_inputs
+from .test_torch_objectives import port_cfg
 from .test_torch_objectives import value_and_grad, world_of_one
 from .test_torch_registry_cli import (
     LOSS_RTOL,
@@ -63,6 +64,9 @@ from .test_torch_registry_cli import (
 from .test_torch_eval_cli import eval_cfg
 from .test_torch_train_cli import RES as CLI_RES
 from .test_torch_train_cli import train_cfg, write_cfg
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 IN_TOL = 2e-5
 BF16_GAP = 3.0
@@ -81,8 +85,7 @@ def both(flows, events, pol, grad_mask, **cfg_kw):
                                       jnp.asarray(grad_mask), jcfg)
     ))(jnp.asarray(flows))
     tv, tg = value_and_grad(tobj.LOSS_REGISTRY["Iterative"], flows,
-                            (events, pol, grad_mask),
-                            tobj.LossConfig(res=RES, **cfg_kw))
+                            (events, pol, grad_mask), port_cfg(**cfg_kw))
     return (float(jv), np.asarray(jg)), (float(tv), tg.numpy())
 
 
@@ -210,8 +213,8 @@ def test_compute_dtype_conv_layer_bitwise(rng, stride, activation):
 def test_scan_table_matches_jax_and_triangular(rng):
     """``triangular_warp: false``: JAX's scan table (``warp_table``) is the
     port's triangular table, location for location and mask for mask, so
-    the option selects the triangular table; the loss with it against
-    JAX's scan loss."""
+    the port needs no such option; JAX's scan loss against the port's one
+    loss."""
     passes = 4
     flows, events, pol, gm = make_inputs(rng, passes)
     ts = events[..., 0:1] + np.arange(passes, dtype=np.float32).reshape(
@@ -250,18 +253,11 @@ def test_batched_sweep_matches_jax(rng, mode, border):
 
 @pytest.mark.parametrize("triangular", [True, False])
 def test_warp_remat_is_bitwise(rng, triangular):
-    """``warp_remat: true`` changes nothing in the port (no per-step
-    residuals to drop): loss and flow gradient bit for bit those without
-    it, and against JAX's remat loss with either warp table."""
+    """``warp_remat: true`` has no field in the port (no per-step residuals
+    to drop): JAX's remat loss with either warp table against the port's
+    one loss."""
     passes = 3
     flows, events, pol, gm = make_inputs(rng, passes)
-    cfg = tobj.LossConfig(res=RES, passes_loss=passes,
-                          triangular_warp=triangular)
-    loss_fn = tobj.LOSS_REGISTRY["Iterative"]
-    ref = value_and_grad(loss_fn, flows, (events, pol, gm), cfg)
-    got = value_and_grad(loss_fn, flows, (events, pol, gm),
-                         cfg._replace(warp_remat=True))
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     j, t = both(flows, events, pol, gm, passes_loss=passes,
                 triangular_warp=triangular, warp_remat=True)
     assert_match(j, t)

@@ -11,7 +11,7 @@ JAX package in this process (on ``conftest.py``'s 8 virtual CPU devices).
   mean over ranks, at the port's loss tolerances (Iterative: rtol 1e-4,
   gradient atol 1e-4 x max |g|, ``tests/test_torch_objectives.py``;
   Linear: ``tests/test_torch_linear.py``'s).
-- ``make_event_parallel_train_step`` at (1 x 2), (2 x 1) and (2 x 2)
+- ``make_train_step(..., mesh=)`` at (1 x 2), (2 x 1) and (2 x 2)
   from the JAX trainer's initial weights (``flax_params_to_state_dict``),
   at ``tests/test_parallel_event.py``'s tolerances (loss rtol 1e-4;
   parameters rtol 2e-3, atol 1e-6; carry rtol 1e-3, atol 1e-5): the loss
@@ -72,6 +72,9 @@ from taming_event_flow_tpu_torch.training import (
 
 from . import torch_parallel_ranks as ranks
 from .test_training import RES, make_window
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 240.0  # seconds a spawn of ranks may take
@@ -326,7 +329,9 @@ def test_mesh_without_a_process_group():
 
 def test_parallel_imports_only_torch_distributed():
     """``parallel/`` imports torch (``torch.distributed`` its only
-    communication library), numpy and the standard library: no JAX."""
+    communication library), numpy and the standard library: no JAX; and
+    nothing of the port's ``training`` or ``objectives``, which import
+    ``parallel`` (the train step under a mesh lives in ``training``)."""
     pkg = os.path.join(REPO, "taming_event_flow_tpu_torch", "parallel")
     allowed = {"torch", "numpy", "__future__", "dataclasses", "functools",
                "multiprocessing", "os", "queue", "time", "traceback",
@@ -342,6 +347,12 @@ def test_parallel_imports_only_torch_distributed():
                 mods = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 mods = [node.module]
+            elif isinstance(node, ast.ImportFrom) and node.level > 1:
+                ups = ([node.module] if node.module
+                       else [a.name for a in node.names])
+                assert not {u.split(".")[0] for u in ups} & {
+                    "training", "objectives"}, (name, ups)
+                continue
             else:
                 continue
             for m in mods:

@@ -31,6 +31,9 @@ from taming_event_flow_tpu_torch.data import write_synthetic_h5
 from taming_event_flow_tpu_torch.parallel.spawn import run_ranks
 
 from . import torch_parallel_ranks as ranks
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RES = (32, 32)
 TIMEOUT = 300.0

@@ -38,6 +38,9 @@ from .test_torch_pipeline import _config as dsec_config
 from .test_torch_pipeline import _window
 from .test_torch_rectify import _config as rect_config
 from .test_torch_rectify import _rectified_sequence
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TIMEOUT = 240.0
 RES = (12, 16)

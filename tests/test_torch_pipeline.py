@@ -36,6 +36,10 @@ from taming_event_flow_tpu_torch.pipeline import (
 )
 from taming_event_flow_tpu_torch.utils import flow_to_u16
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (32, 48)
 PASSES, N = 4, 64

@@ -31,6 +31,10 @@ from taming_event_flow_tpu_torch.pipeline import EvalPipeline
 from taming_event_flow_tpu_torch.training.step import _derive_inputs
 from taming_event_flow_tpu_torch.training.window import pad_batch_events
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (32, 40)
 PASSES, N_PAD = 3, 96

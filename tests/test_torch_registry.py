@@ -52,6 +52,9 @@ from .test_torch_pipeline import (
 )
 from .test_torch_pipeline import RES as PIPE_RES
 from .test_training import P_PASSES, RES, make_window
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FAMILIES = {
     "EVFlowNet": {"name": "EVFlowNet", "base_channels": 8,

@@ -37,6 +37,9 @@ from taming_event_flow_tpu_torch.models import flax_params_to_state_dict
 
 from .test_torch_eval_cli import eval_cfg
 from .test_torch_train_cli import RES, train_cfg, write_cfg
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 LOSS_RTOL = 1e-4
 METRIC_TOL = dict(rtol=2e-3, atol=2e-4)  # the pipeline-parity tolerance

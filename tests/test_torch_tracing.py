@@ -29,6 +29,10 @@ from taming_event_flow_tpu_torch.utils.diagnostics import (
     tracing,
 )
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RES = (16, 16)
 PASSES = 2
 TINY = {"name": "RecEVFlowNet", "base_channels": 8, "num_encoders": 2,

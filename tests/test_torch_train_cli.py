@@ -34,6 +34,10 @@ from taming_event_flow_tpu_torch.models import (
 )
 from taming_event_flow_tpu_torch.tracking import load_checkpoint
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = (32, 32)
 STEPS_PER_EPOCH = 4  # 9 windows of 0.2 s in a 2 s sequence, 2 passes each

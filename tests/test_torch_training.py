@@ -43,6 +43,9 @@ from taming_event_flow_tpu_torch.training import (
 )
 
 from .test_training import P_PASSES, RES, make_window, tiny_model
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FLOW_SCALING = 4.0
 OPT = {"name": "Adam", "lr": 1e-3}

@@ -44,6 +44,10 @@ from taming_event_flow_tpu_torch.tracking import (
 )
 from taming_event_flow_tpu_torch.training import build_optimizer
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 F32_TOL = 1e-5
 VJP_RTOL = 1e-4
 FLOW_TOL = 1e-5

@@ -12,6 +12,10 @@ import jax.numpy as jnp
 from taming_event_flow_tpu.metrics import validation as jval
 from taming_event_flow_tpu_torch.metrics import validation as tval
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RES = (12, 16)
 P, B, N = 3, 2, 40
 LOC_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -33,6 +33,10 @@ from taming_event_flow_tpu_torch.pipeline import EvalPipeline, batch_stream
 from taming_event_flow_tpu_torch.tracking import TrackingStore, loggers
 from taming_event_flow_tpu_torch.utils import visualization as pvis
 
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 RES = (24, 32)
 MODEL = {"name": "RecEVFlowNet", "base_channels": 8, "num_encoders": 2}
 

@@ -53,6 +53,9 @@ from .test_torch_rectify import (
 )
 from .test_torch_train_cli import RES as CLI_RES
 from .test_torch_train_cli import losses, train_cfg, write_cfg
+from .torch_threads import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 WIRES = {"plain": {"packed_wire": False},
          "packed": {"packed_wire": True, "u32_wire": False},

@@ -76,23 +76,23 @@ def losses(rank, world, url, cases):
 
 
 def train_steps(rank, world, url, cases):
-    """Each case: ``steps`` event-parallel train steps on an
-    ``(n_data, n_event)`` mesh from the given weights and global window;
-    the losses, parameters, this rank's carry and its lanes."""
+    """Each case: ``steps`` train steps on an ``(n_data, n_event)`` mesh
+    (``make_train_step(..., mesh=)``) from the given weights and global
+    window; the losses, parameters, this rank's carry and its lanes."""
     _init(rank, world, url)
     from taming_event_flow_tpu_torch.models import build_model
     from taming_event_flow_tpu_torch.objectives import LossConfig
     from taming_event_flow_tpu_torch.parallel import (
         check_replicated,
         make_event_mesh,
-        make_event_parallel_train_step,
         replicate,
-        shard_state_2d,
+        shard_state,
         shard_window_2d,
     )
     from taming_event_flow_tpu_torch.training import (
         build_optimizer,
         init_train_state,
+        make_train_step,
     )
 
     out = []
@@ -105,11 +105,11 @@ def train_steps(rank, world, url, cases):
         replicate(model, opt)
         window = case["window"]
         b, (h, w) = window["event_list"].shape[1], case["loss"]["res"]
-        state = shard_state_2d(init_train_state(model, b, h, w,
-                                                device="cpu"), mesh)
-        step = make_event_parallel_train_step(
-            model, opt, LossConfig(**case["loss"]), mesh, case["warping"],
-            flow_scaling=case["flow_scaling"])
+        state = shard_state(init_train_state(model, b, h, w, device="cpu"),
+                            mesh)
+        step = make_train_step(model, opt, LossConfig(**case["loss"]),
+                               case["warping"],
+                               flow_scaling=case["flow_scaling"], mesh=mesh)
         local = _t(shard_window_2d(window, mesh))
         losses = []
         for _ in range(case["steps"]):

@@ -54,7 +54,6 @@ from taming_event_flow_tpu_torch.parallel import (
     exchange_flags,
     init_distributed,
     make_event_mesh,
-    make_event_parallel_train_step,
     replicate,
     shard_window_2d,
     world_size,
@@ -190,10 +189,7 @@ def train(args, config_parser: YAMLParser, device="cuda"):
         round_ts=config["loss"].get("round_ts", False),
         flow_spat_smooth_weight=config["loss"].get("flow_spat_smooth_weight"),
         flow_temp_smooth_weight=config["loss"].get("flow_temp_smooth_weight"),
-        warp_remat=bool(config["loss"].get("warp_remat", False)),
-        scan_unroll=int(config["loss"].get("scan_unroll", 1)),
         batched_sweep=bool(config["loss"].get("batched_sweep", False)),
-        triangular_warp=bool(config["loss"].get("triangular_warp", True)),
     )
     optimizer = build_optimizer(
         config["optimizer"], model.parameters(),
@@ -224,16 +220,14 @@ def train(args, config_parser: YAMLParser, device="cuda"):
                     tb.add_scalar("loss", v, s)
     data.epoch = epoch
 
-    step_args = dict(warping=config["loss"].get("warping", "Iterative"),
-                     flow_scaling=config["loss"].get("flow_scaling", 32),
-                     res=res)
-    if mesh is None:
-        step_fn = make_train_step(model, optimizer, loss_cfg, **step_args)
-    else:
+    if mesh is not None:
         # rank 0's weights and moments on every rank, checked bit for bit
         replicate(model, optimizer)
-        step_fn = make_event_parallel_train_step(model, optimizer, loss_cfg,
-                                                 mesh, **step_args)
+    step_fn = make_train_step(
+        model, optimizer, loss_cfg,
+        warping=config["loss"].get("warping", "Iterative"),
+        flow_scaling=config["loss"].get("flow_scaling", 32), res=res,
+        mesh=mesh)
     n_epochs = config["loader"]["n_epochs"]
 
     def window_stream():
