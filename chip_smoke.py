@@ -157,7 +157,13 @@ one NVIDIA card.
    unrectified and rectified, on the plain, packed and u32 wires:
    FWL/RSAT/AEE across wires within the kernel tolerance (bitwise or not,
    printed), launches a window (2 row gathers on a rectified u32 one),
-   bytes uploaded a window. (d) ``train_flow_torch.train`` with
+   bytes uploaded a window. (e) The staging ring: a 30-window rectified
+   sequence on the u32 wire, its metrics and u16 ``flow_bw`` copied to
+   the host by a reader thread and one pass overflowing the bucket, staged
+   through the ring and by blocking uploads: ``flow_bw`` and
+   FWL/RSAT/AEE bitwise, launches equal (kept out of the phase's
+   totals), ``h2d_async_bytes`` equal to ``h2d_bytes``, slot waits
+   counted. (d) ``train_flow_torch.train`` with
    ``runtime.packed_wire`` on and off: the first two step losses within
    ``WIRE_STEP_RTOL``, bytes uploaded a step.
 12. JAX run phase: a run as the JAX package's trainer leaves it, at full
@@ -3620,6 +3626,8 @@ WIRES = {"plain": {"packed_wire": False},
          "u32": {"packed_wire": True, "u32_wire": True}}
 WIRE_WINDOWS = 3  # DSEC windows per data kind
 WIRE_STEP_RTOL = 1e-5  # the training CLI's first steps, packed vs plain
+RING_WINDOWS = 30  # the staging ring check's rectified sequence
+RING_GROW_AT = 15  # its window whose fourth pass overflows the bucket
 
 
 def option_steps(tag, rng, model_change=None, loss_change=None,
@@ -3870,6 +3878,176 @@ def wire_phase(rng):
     return total
 
 
+def blocking_ring(device):
+    """A staging ring that uploads as the pipeline did before it had one,
+    as the per-pass path's ``_dev`` still does: pageable buffers, each a
+    blocking copy to the card, counted ``h2d_bytes`` alone."""
+    import torch
+
+    from taming_event_flow_tpu_torch.pipeline.staging import StagingRing
+    from taming_event_flow_tpu_torch.utils.diagnostics import count
+
+    class BlockingRing(StagingRing):
+        def upload(self, name):
+            host = self.slots[self.k][name].numpy()
+            count("h2d_bytes", host.nbytes)
+            return torch.as_tensor(host, device=self.device)
+
+    ring = BlockingRing(device)
+    ring.cuda = False  # pageable buffers, no events
+    return ring
+
+
+def ring_windows(pipe, windows, blocking, reader=True):
+    """Drive ``windows`` through ``pipe`` as the eval CLI does, its reader
+    thread copying each window's metrics and u16 ``flow_bw`` to the host
+    while the next windows stage and replay (without ``reader``, the
+    outputs stay on the card until the last window is in); ``blocking``
+    swaps in :func:`blocking_ring`. Under a CPU profile, for the
+    program's counters. Returns the host outputs, the launches, the
+    counters' sums, the bucket growths warned and the seconds
+    (synchronised)."""
+    import queue
+    import threading
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from taming_event_flow_tpu_torch.ops import LAUNCHES, reset_launches
+    from taming_event_flow_tpu_torch.utils.diagnostics import recorded
+
+    if blocking:
+        pipe._ring = blocking_ring(pipe.device)
+    q, outs, errs = queue.Queue(maxsize=4 if reader else 0), {}, []
+
+    def read():
+        while (item := q.get()) is not None:
+            j, mets, flow_bw = item
+            try:
+                host = {k: float(v.cpu()) for k, v in mets.items()}
+                host["flow_bw"] = flow_bw.cpu().numpy()
+                outs[j] = host
+            except Exception as e:  # raised once the thread is joined
+                errs.append(e)
+
+    thread = threading.Thread(target=read, name="ring-reader", daemon=True)
+    if reader:
+        thread.start()
+    reset_launches()
+    t_ns = time.time_ns()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]), \
+            warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        for j, passes in enumerate(windows):
+            for b in passes:
+                pipe.ingest(pipe.ensure_bucket(b), {"ts": 0.0})
+            q.put((j,) + pipe.boundary_outputs(passes[-1], {"ts": 0.0}))
+        q.put(None)
+        if not reader:
+            thread.start()
+        thread.join(timeout=600)
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(not thread.is_alive() and not errs, f"ring reader: {errs}")
+    names = ("h2d_bytes", "h2d_async_bytes", "stage_slot_waits",
+             "eval_graph_replays", "eval_graph_captures")
+    mine = [e for e in recorded() if e.start_ns >= t_ns
+            and e.value is not None]
+    counts = {k: sum(e.value for e in mine if e.name == k) for k in names}
+    grew = sum("event bucket grew" in str(w.message) for w in warned)
+    return [outs.get(j) for j in range(len(windows))], dict(LAUNCHES), \
+        counts, grew, secs
+
+
+def staging_ring_check(rng):
+    """(e): a rectified DSEC sequence of ``RING_WINDOWS`` windows on the
+    default u32 wire through the staging ring against the same windows
+    staged by blocking uploads, both read back by a reader thread as in
+    the eval CLI, one pass of window ``RING_GROW_AT`` overflowing the
+    bucket: ``flow_bw`` (u16) and FWL/RSAT/AEE bitwise, the launches
+    equal, graphs replayed alike; every byte of the ring's path counted
+    ``h2d_async_bytes``. Then the first windows again through the ring,
+    their outputs read after the last: bitwise, and slot waits counted
+    (the host a window ahead). Its launches stay out of the phase's
+    totals. Returns the ms a window of both."""
+    from taming_event_flow_tpu_torch.models import build_model
+    from taming_event_flow_tpu_torch.pipeline import EvalPipeline
+    from taming_event_flow_tpu_torch.training.window import (
+        pad_batch_events,
+    )
+
+    fwd, bwd = radial_maps()
+    ridx = rectified_index(bwd)[None]
+    windows = rectified_windows(rng, RING_WINDOWS, fwd, ridx[0])
+    bucket = max(b["event_list"].shape[1] for w in windows for b in w)
+    grow = windows[RING_GROW_AT]
+    grow[3] = pad_batch_events(grow[3], bucket + 4096)
+    cfg = dict(DSEC_CONFIG, loader=dict(DSEC_CONFIG["loader"],
+                                        n_events_pad=bucket))
+    model = build_model(MODEL_CONFIG, num_bins=2, device=DEVICE, seed=0)
+    res = {}
+    for tag in ("blocking", "ring"):
+        pipe = EvalPipeline(cfg, model, device=DEVICE)
+        pipe.cur_ridx, pipe.cur_rect = ridx, fwd
+        check(pipe.windowed and pipe.u32_wire, f"ring {tag}: not windowed")
+        res[tag] = ring_windows(pipe, windows, tag == "blocking")
+        del pipe
+    (ref, ref_launch, ref_n, ref_grew, ref_s) = res["blocking"]
+    (out, launch, n, grew, secs) = res["ring"]
+    ms = (secs * 1e3 / RING_WINDOWS, ref_s * 1e3 / RING_WINDOWS)
+    print(f"options (e) staging ring: {RING_WINDOWS} rectified u32 windows "
+          f"(bucket {bucket}, grown {grew} time(s) at window "
+          f"{RING_GROW_AT}), read back on a thread; {n['h2d_async_bytes']:.0f}"
+          f" of {n['h2d_bytes']:.0f} bytes uploaded through the ring "
+          f"(blocking: {ref_n['h2d_bytes']:.0f}); "
+          f"{n['stage_slot_waits']:.0f} slot waits; replays "
+          f"{n['eval_graph_replays']:.0f}, captures "
+          f"{n['eval_graph_captures']:.0f}; launches a window "
+          f"{ {k: v / RING_WINDOWS for k, v in launch.items()} } (blocking "
+          f"{ {k: v / RING_WINDOWS for k, v in ref_launch.items()} }); ms a "
+          f"window (profiled) ring {ms[0]:.3f}, blocking {ms[1]:.3f}")
+    check(ref_grew == grew == 1, f"ring: bucket growths {ref_grew} {grew}")
+    check(all(o is not None for o in out + ref), "ring: a window is missing")
+    for j, (a, b) in enumerate(zip(out, ref)):
+        check(a["flow_bw"].dtype == np.uint16
+              and np.array_equal(a["flow_bw"], b["flow_bw"]),
+              f"ring window {j}: flow_bw differs from blocking staging")
+        for k in ("fwl", "rsat", "aee"):
+            check(a[k] == b[k], f"ring window {j} {k}: {a[k]} vs blocking "
+                                f"{b[k]}")
+    check(launch == ref_launch,
+          f"ring: launches {launch}, blocking staging {ref_launch}")
+    for k in ("eval_graph_replays", "eval_graph_captures"):
+        check(n[k] == ref_n[k] > 0, f"ring: {k} {n[k]} vs {ref_n[k]}")
+    check(n["h2d_async_bytes"] == n["h2d_bytes"] == ref_n["h2d_bytes"] > 0,
+          "ring: h2d_async_bytes and h2d_bytes differ")
+    check(ref_n["h2d_async_bytes"] == 0 and ref_n["stage_slot_waits"] == 0,
+          f"ring: blocking staging counted {ref_n}")
+    print(f"options (e) staging ring: flow_bw (u16) and FWL/RSAT/AEE of "
+          f"every window bitwise blocking staging's, launches equal")
+    # the reader's blocking copies hold the stream, so the host rarely
+    # gets a window ahead above; with the outputs left on the card it does,
+    # and waits for the slot it refills
+    pipe = EvalPipeline(cfg, model, device=DEVICE)
+    pipe.cur_ridx, pipe.cur_rect = ridx, fwd
+    ahead, _, n_ahead, _, secs = ring_windows(
+        pipe, windows[:RING_GROW_AT], False, reader=False)
+    for j, (a, b) in enumerate(zip(ahead, ref)):
+        check(np.array_equal(a["flow_bw"], b["flow_bw"])
+              and all(a[k] == b[k] for k in ("fwl", "rsat", "aee")),
+              f"ring window {j} (no reader): differs from blocking staging")
+    print(f"options (e) staging ring, outputs read after the last window: "
+          f"{n_ahead['stage_slot_waits']:.0f} slot waits in {RING_GROW_AT} "
+          f"windows, {secs * 1e3 / RING_GROW_AT:.3f} ms a window "
+          f"(profiled), outputs bitwise")
+    check(n_ahead["stage_slot_waits"] > 0, "ring: no slot wait counted with "
+          "the host ahead (the device should set the pace)")
+    return ms
+
+
 def train_wire_ab(seed, work, train_data):
     """(d): ``train_flow_torch.train`` at ``TRAIN_CLI_CONFIG``'s values
     for one epoch with ``runtime.packed_wire`` on and off: the first two
@@ -3922,8 +4100,10 @@ def options_phase(seed, work, train_data, gpu):
     """Phase 11: the registry options and the wires. (a) ``norm: IN`` and
     ``compute_dtype: bfloat16`` flows, then each through the training
     cell; (b) ``batched_sweep`` at the training cell against the looped
-    sweep, with its launches, ms/step and peak memory; (c) the DSEC cell on the three wires; (d) the
-    training CLI on the packed and the plain wire. Returns the launches."""
+    sweep, with its launches, ms/step and peak memory; (c) the DSEC cell
+    on the three wires; (e) the staging ring against blocking uploads; (d)
+    the training CLI on the packed and the plain wire. Returns the
+    launches."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng([seed, 11])
     total = {k: 0 for k in TRAIN_LAUNCHES}
@@ -3947,6 +4127,7 @@ def options_phase(seed, work, train_data, gpu):
     print(f"options (b) peak memory (GiB) on {gpu}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in peaks.items()))
     add(wire_phase(rng))
+    staging_ring_check(np.random.default_rng([seed, 11, 5]))
     add(train_wire_ab(seed, work, train_data))
     print(f"phase 11 options and wires: {time.perf_counter() - t_phase:.1f} "
           f"s; launches {total}")

@@ -117,7 +117,7 @@ def derive_count_input(event_list, res: Tuple[int, int], raw_xy=None,
     return out.reshape(*lead, h, w, 2)
 
 
-def pack_event_wire_np(ys, xs, ps):
+def pack_event_wire_np(ys, xs, ps, out=None):
     """Host-side u32 packing of integer event coordinates and polarity:
     ``y << 16 | x << 2 | pcode``, ``pcode`` 1 for positive, 2 for negative,
     0 for padding rows (``p == 0``). Exact for integer ``y < 65536`` and
@@ -125,11 +125,24 @@ def pack_event_wire_np(ys, xs, ps):
 
     :param ys, xs: integer-valued arrays (any float or int dtype).
     :param ps: polarity +-1 (0 for padding).
-    :return: uint32 array of ``ys.shape``.
+    :param out: optional uint32 array of ``ys.shape`` to pack into (a
+        staging buffer); the work stays in uint32, in place.
+    :return: uint32 array of ``ys.shape`` (``out`` when given).
     """
-    pcode = np.where(ps > 0, 1, 0) + np.where(ps < 0, 2, 0)
-    return ((ys.astype(np.uint32) << 16) | (xs.astype(np.uint32) << 2)
-            | pcode.astype(np.uint32))
+    if out is None:
+        out = np.empty(np.shape(ys), np.uint32)
+    tmp = np.empty_like(out)
+    np.copyto(out, ys, casting="unsafe")  # astype's conversion
+    out <<= 16
+    np.copyto(tmp, xs, casting="unsafe")
+    tmp <<= 2
+    out |= tmp
+    np.greater(ps, 0, out=tmp)
+    out |= tmp
+    np.less(ps, 0, out=tmp)
+    tmp <<= 1
+    out |= tmp
+    return out
 
 
 def unpack_event_wire(ts, yxp, rect=None):

@@ -45,11 +45,20 @@ slot state it hands back is the graph's own buffers, which the next window
 resets and rewrites, and the carry, flow and metrics are clones, so the
 reader thread may still hold them while the next window replays.
 
+The windowed path stages each window in the next slot of a ring of two
+slots of host buffers (:class:`.staging.StagingRing`: page-locked on the
+card) and uploads it without blocking, so the host packs window k+1 while
+the device runs window k; the only wait, before a slot is filled again,
+is for that slot's last uploads. The per-pass path uploads each array
+with a blocking copy.
+
 While a ``torch.profiler`` profile is active, every ``SectionTimer``
 section is a span of the GT window it serves (its rid is
 :attr:`EvalPipeline.window_id`), and the pipeline counts ``h2d_bytes`` (each
-host array it uploads), ``slots`` (the event rows a pass or window stages)
-and ``events`` (those with a nonzero polarity; padding rows carry zero). A
+host array it uploads), ``h2d_async_bytes`` (those the ring uploads),
+``stage_slot_waits`` (slots taken while their last uploads were pending),
+``slots`` (the event rows a pass or window stages) and ``events`` (those
+with a nonzero polarity; padding rows carry zero). A
 replayed window step records ``eval.replay`` (and ``eval.capture``) inside
 ``window_call``, and the counters ``eval_graph_replays`` and
 ``eval_graph_captures``.
@@ -74,6 +83,7 @@ from ..training.window import pad_batch_events
 from ..utils.device import resolve_device
 from ..utils.diagnostics import SectionTimer, count, tracing
 from ..utils.visualization import flow_to_u16, u16_to_flow
+from .staging import StagingRing
 
 
 class VisPolicy:
@@ -100,6 +110,15 @@ class VisPolicy:
             return True
         # error_flow is derived from flow_bw + GT
         return key == "flow_bw" and "error_flow" in self.show
+
+
+def _u32_exact(yx: np.ndarray) -> bool:
+    """Do the ``[..., 2]`` (y, x) coordinates fit the u32 wire: integers,
+    ``0 <= y < 65536``, ``0 <= x < 16384``?"""
+    return bool(np.all(yx == np.floor(yx))
+                and yx.min(initial=0.0) >= 0.0
+                and yx[..., 1].max(initial=0.0) < 16384
+                and yx[..., 0].max(initial=0.0) < 65536)
 
 
 def _to_host(mets: Dict) -> Dict:
@@ -244,6 +263,7 @@ class EvalPipeline:
             {"Horizontal", "Vertical"} & set(
                 config["loader"].get("augment") or []))
         self._u32_ok = None  # the first u32 window's format probe
+        self._ring = StagingRing(self.device)  # the windowed path's uploads
         self._window_done = None  # CUDA event after the last window call
 
         # windowed path: protocols whose displayed/stored quantities are all
@@ -370,7 +390,8 @@ class EvalPipeline:
     def ensure_bucket(self, batch):
         """Fit a batch to the static event bucket: pad short batches; grow
         the bucket (rebuilding the steps, which drops the window step's
-        graphs: the new bucket warms up anew) when a batch overflows it. The
+        graphs: the new bucket warms up anew, and reallocating the staging
+        ring's buffers at the next window) when a batch overflows it. The
         decision reads the whole batch, which every rank streams, so every
         rank grows alike; a sharded bucket grows to a multiple of the
         ranks."""
@@ -398,6 +419,7 @@ class EvalPipeline:
     # -------------------------------------------------------- dispatch
 
     def _dev(self, a):
+        """The per-pass path's upload: a blocking copy of a host array."""
         count("h2d_bytes", a.nbytes)
         return torch.as_tensor(a, device=self.device)
 
@@ -488,27 +510,45 @@ class EvalPipeline:
         :meth:`_stage_events` packs it, and ``raw`` a rectified window's
         raw coordinates when its input derives from the float32 event
         list. The polarity masks ship only on the plain wire
-        (:meth:`stage_pols`)."""
+        (:meth:`stage_pols`). The window takes the next slot of the
+        staging ring (:class:`.staging.StagingRing`): its arrays are
+        stacked and packed into the slot's host buffers, then uploaded
+        together, without blocking on the card."""
         self._count_events(bufs)
-        aux = (self._dev(bufs[-1]["gtflow"])
-               if (self.use_extras and self.aee_in_program) else None)
-
-        def stack(key):
-            return self._dev(np.stack([b[key] for b in bufs]))
-
+        ring = self._ring
+        ring.next_slot()
+        aux = None
+        if self.use_extras and self.aee_in_program:
+            gt = bufs[-1]["gtflow"]
+            np.copyto(ring.buffer("gtflow", gt.shape, gt.dtype), gt)
+            aux = ring.upload("gtflow")
         if not self._derive_on_device(bufs[0]):
-            return (stack("net_input"), stack("event_list"),
-                    stack("event_mask"), aux, None)
-        evs, raw = self._stage_events(bufs)
-        return None, evs, None, aux, raw
+            staged = (self._stack(bufs, "net_input"),
+                      self._stack(bufs, "event_list"),
+                      self._stack(bufs, "event_mask"), aux, None)
+        else:
+            evs, raw = self._stage_events(bufs)
+            staged = None, evs, None, aux, raw
+        ring.flush()
+        return staged
 
     def stage_pols(self, bufs):
         """The plain wire's polarity masks of a window (bool), ``None`` on
         the packed wire, where the step derives them."""
         if self.packed_wire:
             return None
-        return self._dev(np.stack([b["event_list_pol_mask"]
-                                   for b in bufs]).astype(bool))
+        pols = self._stack(bufs, "event_list_pol_mask", bool)
+        self._ring.flush()
+        return pols
+
+    def _stack(self, bufs, key, dtype=None):
+        """The passes' ``key`` arrays stacked into the staging ring's
+        buffer of that name (cast to ``dtype``), its upload pending."""
+        first = bufs[0][key]
+        host = self._ring.buffer(key, (len(bufs),) + first.shape,
+                                 dtype or first.dtype)
+        np.stack([b[key] for b in bufs], out=host, casting="unsafe")
+        return self._ring.upload(key)
 
     def _stage_events(self, bufs):
         """A derived window's events: the u32 wire when it is exact and
@@ -518,34 +558,36 @@ class EvalPipeline:
         if self.u32_wire and self.eval_mesh is None:
             if rectified:
                 if self.cur_rect is not None and not self.coord_flips:
-                    raw = np.stack([b["event_raw_xy"] for b in bufs])
-                    ev = np.stack([b["event_list"] for b in bufs])
-                    yxp = pack_event_wire_np(raw[..., 0], raw[..., 1],
-                                             ev[..., 3])
-                    return {"ts": self._dev(ev[..., 0]),
-                            "yxp": self._dev(yxp.view(np.int32)),
-                            "rect": self.cur_rect}, None
+                    return dict(self._stage_u32(bufs, "event_raw_xy"),
+                                rect=self.cur_rect), None
             else:
-                ev = np.stack([b["event_list"] for b in bufs])
                 if self._u32_ok is None:
                     # the format's rule, checked on the first window:
                     # integer coordinates, y < 65536, x < 16384
-                    c = ev[..., 1:3]
-                    self._u32_ok = bool(
-                        np.all(c == np.floor(c))
-                        and c.min(initial=0.0) >= 0.0
-                        and c[..., 1].max(initial=0.0) < 16384
-                        and c[..., 0].max(initial=0.0) < 65536)
+                    self._u32_ok = all(_u32_exact(b["event_list"][..., 1:3])
+                                       for b in bufs)
                 if self._u32_ok:
-                    yxp = pack_event_wire_np(ev[..., 1], ev[..., 2],
-                                             ev[..., 3])
-                    return {"ts": self._dev(ev[..., 0]),
-                            "yxp": self._dev(yxp.view(np.int32))}, None
-        evs = self._dev(np.stack([b["event_list"] for b in bufs]))
-        raw = None
-        if rectified:
-            raw = self._dev(np.stack([b["event_raw_xy"] for b in bufs]))
+                    return self._stage_u32(bufs, None), None
+        evs = self._stack(bufs, "event_list")
+        raw = self._stack(bufs, "event_raw_xy") if rectified else None
         return evs, raw
+
+    def _stage_u32(self, bufs, yx_key):
+        """The u32 wire's ``{"ts", "yxp"}`` of a window, copied and packed
+        pass by pass into the staging ring, their uploads pending; (y, x)
+        from the event list, or a rectified window's raw ``yx_key``."""
+        ring = self._ring
+        ev0 = bufs[0]["event_list"]
+        shape = (len(bufs),) + ev0.shape[:-1]
+        ts = ring.buffer("ts", shape, ev0.dtype)
+        yxp = ring.buffer("yxp", shape, np.int32).view(np.uint32)
+        for i, b in enumerate(bufs):
+            ev = b["event_list"]
+            yx = ev[..., 1:3] if yx_key is None else b[yx_key]
+            np.copyto(ts[i], ev[..., 0])
+            pack_event_wire_np(yx[..., 0], yx[..., 1], ev[..., 3],
+                               out=yxp[i])
+        return {"ts": ring.upload("ts"), "yxp": ring.upload("yxp")}
 
     def _drain_event(self):
         """A CUDA event recorded on the current stream now (``None`` on

@@ -7,10 +7,12 @@ import ast
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from taming_event_flow_tpu_torch.pipeline import (
     initialize_quant_results,
 )
 from taming_event_flow_tpu_torch.utils import flow_to_u16
+from taming_event_flow_tpu_torch.utils.diagnostics import recorded
 
 from .torch_threads import one_thread  # noqa: F401
 
@@ -263,6 +266,113 @@ def test_ensure_bucket_pads_and_grows(models):
         out = pipe.ensure_bucket(big)
     assert pipe.criteria.n_events == 96
     assert pipe.vstate.event_ts.shape[2] == 96
+
+
+def _ring_buffers(pipe):
+    """The staging ring's host buffers, by slot and name."""
+    return [dict(slot) for slot in pipe._ring.slots]
+
+
+def _assert_windows_equal(ours, ref):
+    """Windowed against per-pass boundary outputs: the u16 ``flow_bw``
+    bitwise, FWL, RSAT and AEE as ``test_per_pass_path_equals_windowed``
+    holds them."""
+    assert len(ours) == len(ref)
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        assert a["flow_bw"].dtype == b["flow_bw"].dtype == np.uint16
+        np.testing.assert_array_equal(a["flow_bw"], b["flow_bw"],
+                                      err_msg=f"window {i}")
+        for k in ("fwl", "rsat", "aee"):
+            np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-6,
+                                       err_msg=f"window {i} {k}")
+
+
+def test_ring_windows_equal_per_pass_path(models):
+    """Six consecutive GT windows through the staging ring (each slot
+    filled three times) give the per-pass path's outputs; traced, every
+    byte the windowed path uploads goes through the ring, and none of the
+    per-pass path's."""
+    _, _, tm = models
+    windows = [_window(20 + i) for i in range(6)]
+    windowed = EvalPipeline(_config(vis=DSEC_VIS), tm, device="cpu")
+    per_pass = EvalPipeline(_config(vis={"enabled": True}), tm,
+                            device="cpu")
+    counts = {}
+    for name, pipe in (("windowed", windowed), ("per_pass", per_pass)):
+        t0 = time.time_ns()
+        with profile(activities=[ProfilerActivity.CPU]):
+            counts[name] = _drive(pipe, windows)
+        mine = [e for e in recorded() if e.start_ns >= t0
+                and e.value is not None]
+        counts[name] = (counts[name], {
+            k: sum(e.value for e in mine if e.name == k)
+            for k in ("h2d_bytes", "h2d_async_bytes", "stage_slot_waits")})
+    (ours, up), (ref, up_ref) = counts["windowed"], counts["per_pass"]
+    _assert_windows_equal(ours, ref)
+    assert up["h2d_async_bytes"] == up["h2d_bytes"] > 0
+    assert up_ref["h2d_async_bytes"] == 0 < up_ref["h2d_bytes"]
+    assert up["stage_slot_waits"] == 0  # no pending copy on the CPU
+    assert all(set(slot) == {"gtflow", "ts", "yxp"}
+               for slot in _ring_buffers(windowed))
+
+
+def test_ring_bucket_growth_reallocates(models):
+    """A window that overflows the bucket grows it between windows: the
+    ring's event buffers take the new width at the next window (the rest
+    keep theirs), and the outputs stay the per-pass path's, which grows
+    alike."""
+    _, _, tm = models
+    windows = [_window(30), _window(31), _window(32, n=96), _window(33),
+               _window(34)]
+    windowed = EvalPipeline(_config(vis=DSEC_VIS), tm, device="cpu")
+    per_pass = EvalPipeline(_config(vis={"enabled": True}), tm,
+                            device="cpu")
+    ours = _drive(windowed, windows[:2])
+    before = _ring_buffers(windowed)
+    assert {b["ts"].shape for b in before} == {(PASSES, 1, N)}
+    with pytest.warns(UserWarning, match="event bucket grew"):
+        ours += _drive(windowed, windows[2:])
+        ref = _drive(per_pass, windows)
+    after = _ring_buffers(windowed)
+    assert {b["ts"].shape for b in after} == {(PASSES, 1, 96)}
+    for a, b in zip(after, before):
+        # the event arrays are reallocated; the GT map keeps its buffer
+        assert a["ts"] is not b["ts"] and a["yxp"] is not b["yxp"]
+        assert a["gtflow"] is b["gtflow"]
+    _assert_windows_equal(ours, ref)
+
+
+@pytest.mark.parametrize("runtime,n_staged", [
+    ({}, 3),  # gtflow, ts, yxp
+    ({"u32_wire": False}, 2),  # gtflow, the float32 event list
+    ({"packed_wire": False}, 5),  # + net input, event masks, pol masks
+], ids=["u32", "packed", "plain"])
+def test_staged_window_outlives_later_staging(models, runtime, n_staged):
+    """A staged window's device tensors keep their values while the next
+    window is staged into the other slot and the one after into its own."""
+    _, _, tm = models
+    pipe = EvalPipeline(_config(vis=DSEC_VIS, runtime=runtime), tm,
+                        device="cpu")
+
+    def stage(seed):
+        bufs = [pipe.ensure_bucket(b) for b in _window(seed)]
+        staged = [pipe.stage_window(bufs), pipe.stage_pols(bufs)]
+        leaves = []
+        for t in staged:
+            for v in (t if isinstance(t, tuple) else (t,)):
+                leaves += list(v.values()) if isinstance(v, dict) else [v]
+        return [t for t in leaves if torch.is_tensor(t)]
+
+    first = stage(40)
+    kept = [t.clone() for t in first]
+    assert len(first) == n_staged
+    slot = pipe._ring.k
+    stage(41)
+    assert pipe._ring.k != slot
+    stage(42)
+    assert pipe._ring.k == slot
+    for t, want in zip(first, kept):
+        assert torch.equal(t, want)
 
 
 def test_vis_policy():

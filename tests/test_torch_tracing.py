@@ -195,9 +195,16 @@ def test_eval_pipeline_records_sections_and_counters(windowed):
     model = build_model(TINY, num_bins=2, device="cpu")
     pipe = EvalPipeline(_pipe_config(windowed), model, device="cpu")
     assert pipe.windowed == windowed
-    handed = []
-    dev = pipe._dev
+    handed = []  # bytes of each upload: blocking, or through the ring
+    dev, ring_upload = pipe._dev, pipe._ring.upload
     pipe._dev = lambda a: (handed.append(a.nbytes), dev(a))[1]
+
+    def upload(name):
+        t = ring_upload(name)
+        handed.append(t.numel() * t.element_size())
+        return t
+
+    pipe._ring.upload = upload
     rng = np.random.default_rng(1)
     sizes = [[40, 25], [52, 30]]
     t0 = time.time_ns()
@@ -228,6 +235,9 @@ def test_eval_pipeline_records_sections_and_counters(windowed):
         return sum(e.value for e in got if e.name == name)
 
     assert total("h2d_bytes") == sum(handed) > 0
+    # the windowed path uploads through the staging ring, the per-pass
+    # path by blocking copies
+    assert total("h2d_async_bytes") == (sum(handed) if windowed else 0)
     assert total("events") == sum(map(sum, sizes))
     assert total("slots") == len(sizes) * PASSES * pipe.n_slots
 

@@ -100,6 +100,61 @@ def test_event_wire_matches_jax(rng):
     np.testing.assert_array_equal(ev[..., 2].numpy().reshape(-1), rx)
 
 
+def _pack_through_int64(ys, xs, ps):
+    """The pack as the port wrote it before it took ``out=``: numpy
+    temporaries, the polarity code in int64."""
+    pcode = np.where(ps > 0, 1, 0) + np.where(ps < 0, 2, 0)
+    return ((ys.astype(np.uint32) << 16) | (xs.astype(np.uint32) << 2)
+            | pcode.astype(np.uint32))
+
+
+def _wire_window(rng, case):
+    """A ``[P, 1, N, 4]`` float32 event list: loader-like random windows
+    with padding rows, or the format's edges (y = 65535, x = 16383, every
+    polarity in {-1, 0, +1} at each corner, padding rows)."""
+    ev = np.zeros((3, 1, 64, 4), np.float32)
+    if case == "random":
+        ys, xs, ps = _events(rng, ev.shape[:-1], (480, 640), pad_rows=9)
+    else:
+        corners = [(y, x, p) for y in (0, 65535) for x in (0, 16383)
+                   for p in (-1.0, 0.0, 1.0)]
+        ys, xs, ps = (np.zeros(ev.shape[:-1], np.float32) for _ in range(3))
+        for i, (y, x, p) in enumerate(corners):
+            ys[i % 3, 0, i], xs[i % 3, 0, i], ps[i % 3, 0, i] = y, x, p
+        ys[:, :, 40:50] = 65535
+        xs[:, :, 40:50] = 16383
+        ps[:, :, 40:50] = rng.choice([-1.0, 1.0], (3, 1, 10))
+    ev[..., 0] = rng.uniform(0, 1, ev.shape[:-1])
+    ev[..., 1], ev[..., 2], ev[..., 3] = ys, xs, ps
+    return ev
+
+
+@pytest.mark.parametrize("case", ["random", "edges"])
+@pytest.mark.parametrize("into", [False, True],
+                         ids=["returned", "into_staging_rows"])
+def test_pack_into_buffer_is_bitwise(rng, case, into):
+    """``pack_event_wire_np``, with and without ``out=``, gives the words
+    of the int64 pack and of the JAX package's, from the event list's
+    strided columns. ``out=`` (a pass's row of an int32 staging buffer,
+    holding stale words) receives exactly the words returned."""
+    ev = _wire_window(rng, case)
+    ys, xs, ps = ev[..., 1], ev[..., 2], ev[..., 3]
+    want = _pack_through_int64(ys, xs, ps)
+    np.testing.assert_array_equal(jenc.pack_event_wire_np(ys, xs, ps), want)
+    if into:
+        buf = np.full(ev.shape[:-1], -1, np.int32).view(np.uint32)
+        for k in range(ev.shape[0]):
+            row = buf[k]
+            got = tops.pack_event_wire_np(ys[k], xs[k], ps[k], out=row)
+            assert got is row
+            np.testing.assert_array_equal(got, want[k])
+        words = buf
+    else:
+        words = tops.pack_event_wire_np(ys, xs, ps)
+    assert words.dtype == np.uint32
+    np.testing.assert_array_equal(words, want)
+
+
 def test_rectify_values_match_jax_loader(tmp_path, monkeypatch):
     """``H5Loader.rectify_values()``: the lanes' forward maps as the JAX
     loader stacks them, ``None`` for an unrectified file."""
